@@ -9,24 +9,38 @@ Phases, each of which raises (non-zero exit) on failure:
 1. device and flags: a CUDA device is required (no CPU fallback); both TF32
    flags are set to False; the card's name and power limit are printed;
 2. build: the CUDA kernels are compiled from ``ptzjax_torch/csrc`` with nvcc;
-3. kernel vs plain torch on the card, at the main path's shapes (a 720p
-   frame for Harris+NMS, 512 windows at win 46 and 18 for the gather), with
-   the median time of each;
+3. kernel vs plain torch on the card, at the main path's shapes, with the
+   median time of each: (a) Harris+NMS on a 720p frame; (b) the window
+   gather, 512 windows at win 46 and 18; (c) the matcher at 512 x 256 gated
+   at 60 px (tracking), 512 x 2,048 (the matcher bench shape), 512 x 4,096
+   mutual (map relocalization) and 512 x 32,768 one-way (keyframe
+   relocalization); (d) the Cholesky factor at n = 512 and 256, and its
+   failure flag on a non-PD input;
 4. the slice: ``bench.py``'s 720p sequence, continued from 120 to 192
    frames (one full period of its pan sweep) so that the product defaults'
    keyframe policy inserts keyframes (at 120 frames it inserts none),
    through ``PTZSlam.init`` + ``run_segment_pixels`` at the SLAMConfig
-   product defaults; the kernel launch counters must show one launch of each
-   kernel per frame, no frame may be lost, the pan error against ground
-   truth must stay under 3e-3 rad, windowed BA must have run, and the first
-   frames must agree with the same code run on the CPU (plain versions).
+   product defaults. (a) The first frames must agree with the same code run
+   on the CPU (plain versions). (b) The whole sequence: the kernel launch
+   counters must equal the counts the call sites give (detection and
+   windows once per frame, the matcher once per tracked frame and per
+   keyframe insert, the Cholesky once per tracked frame), no frame may be
+   lost, the pan error against ground truth must stay under 3e-3 rad and
+   windowed BA must have run. (c) The same sequence with frames 140-146
+   (after the frame-120 cadence insert) blacked out, once per
+   ``reloc_mode`` ("map", "keyframe"): tracking must go lost in the
+   blackout, relocalize, track every frame from 15 frames after it with a
+   pan error under 3e-3 rad, and the counters must again equal the call
+   sites' counts (the matcher also once per relocalization frame).
 
-The line before the last is one JSON object with the kernels' numbers; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is one JSON object with the kernels' numbers
+(``launches`` from run 4b, ``launches_by_path`` from 4b and both 4c runs);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
@@ -143,16 +157,219 @@ def kernel_phase(img: torch.Tensor, card: str) -> list[dict]:
     ]
 
 
-def run_slice(imgs: torch.Tensor, cams, intr):
+def run_slice(imgs: torch.Tensor, cams, intr, reloc_mode: str = "map"):
     """``PTZSlam.init`` on frame 0, then ``run_segment_pixels`` on the rest,
     at the product defaults (descriptor_f_ref AUTO)."""
     from ptzjax_torch.config import SLAMConfig
     from ptzjax_torch.frontend import extract_features
     from ptzjax_torch.slam import PTZSlam
 
-    slam = PTZSlam(SLAMConfig(), intr)
+    slam = PTZSlam(SLAMConfig(reloc_mode=reloc_mode), intr)
     state = slam.init(*extract_features(imgs[0], slam.cfg), cams[0])
     return slam.run_segment_pixels(state, imgs[1:])
+
+
+def _unit(x: np.ndarray) -> np.ndarray:
+    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def matcher_phase(dev, card: str) -> dict:
+    """Kernel C against its plain version at the path's four shapes, on unit
+    random descriptors with planted correspondences, exact duplicate
+    reference rows and all-invalid query rows. Indices may differ only
+    where a top-2 margin is under 1e-6 (the kernel sums each dot product in
+    another order than cuBLAS)."""
+    from ptzjax_torch import match as matchlib
+    from ptzjax_torch.kernels import match as km
+
+    rng = np.random.default_rng(1)
+    shapes = (   # (name, Q, R, gated, mutual, ratio of the call site)
+        ("512x256 gated 60px", 512, 256, True, True, 0.95),
+        ("512x2048", 512, 2048, False, True, 0.8),
+        ("512x4096 mutual", 512, 4096, False, True, 0.8),
+        ("512x32768 one-way", 512, 32768, False, False, 0.8),
+    )
+    errs, by_shape = [], {}
+    for name, q, r, gated, mutual, ratio in shapes:
+        dr = _unit(rng.normal(size=(r, 128)))
+        src = rng.integers(0, r - 1, q)
+        dq = _unit(dr[src] + 0.05 * rng.normal(size=(q, 128)))
+        dr[src[:16] + 1] = dr[src[:16]]           # exact duplicates of matched rows
+        q_valid = rng.random(q) > 0.1
+        q_valid[-4:] = False                      # all-invalid rows
+        r_valid = rng.random(r) > 0.05
+        xr = rng.uniform([0, 0], [1280, 720], (r, 2)).astype(np.float32)
+        xq = (xr[src] + rng.normal(0, 20, (q, 2))).astype(np.float32)
+        args = tuple(torch.from_numpy(a).to(dev) for a in (dq, dr, q_valid, r_valid))
+        if gated:
+            args += (torch.from_numpy(xq).to(dev), torch.from_numpy(xr).to(dev), 60.0)
+        got = km.match_scores(*args, mutual=mutual)
+        ref = km.match_scores_plain(*args, mutual=mutual)
+        torch.cuda.synchronize()
+        i1, v1, v2, cb = got
+        p_i1, p_v1, p_v2, p_cb = ref
+        torch.testing.assert_close(v1, p_v1, rtol=0, atol=1e-5)
+        torch.testing.assert_close(v2, p_v2, rtol=0, atol=1e-5)
+        # a top-2 margin under 1e-6 on a row with a candidate; rows with none
+        # (all -1e9) must agree exactly
+        near = ((p_v1 - p_v2) < 1e-6) & (p_v1 > -5e8)
+        check(torch.equal(i1[~near], p_i1[~near]), f"matcher {name}: i1 differs outside the margin")
+        n_rows_near, n_cols_near = int(near.sum()), 0
+        if mutual:
+            s = torch.where(args[2][:, None] & args[3][None, :], args[0] @ args[1].T, -1e9)
+            if gated:
+                d2 = ((args[4][:, None, :] - args[5][None, :, :]) ** 2).sum(-1)
+                s = torch.where(d2 <= 60.0 * 60.0, s, -1e9)
+            top = torch.topk(s, 2, dim=0).values
+            col_near = ((top[0] - top[1]) < 1e-6) & (top[0] > -5e8)
+            n_cols_near = int(col_near.sum())
+            check(torch.equal(cb[~col_near], p_cb[~col_near]), f"matcher {name}: col_best differs outside the margin")
+            near = near | col_near[p_i1.long()]
+        res_k = matchlib._decide(args[2], *got, ratio, 0.5, gated)
+        res_p = matchlib._decide(args[2], *ref, ratio, 0.5, gated)
+        check(
+            torch.equal(res_k.ok[~near], res_p.ok[~near]) and torch.equal(res_k.idx[~near], res_p.idx[~near]),
+            f"matcher {name}: ok/idx differ outside the margin",
+        )
+        err = max(float((v1 - p_v1).abs().max()), float((v2 - p_v2).abs().max()))
+        errs.append(err)
+        ms = time_ms(lambda: km.match_scores(*args, mutual=mutual))
+        plain_ms = time_ms(lambda: km.match_scores_plain(*args, mutual=mutual))
+        by_shape[name] = {"ms": ms, "plain_ms": plain_ms}
+        print(
+            f"match_scores {name}: rows within the 1e-6 margin {n_rows_near}, columns "
+            f"{n_cols_near}; ok {int(res_k.ok.sum())}/{q}; v1/v2 max_abs_err {err} (atol 1e-5); "
+            f"i1, col_best, ok, idx equal outside the margin; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms [{card}]"
+        )
+    track = by_shape[shapes[0][0]]
+    return {
+        "name": "match_scores", "route": "cuda", "source": "ptzjax_torch/csrc/match.cu",
+        "replaces": "ptzjax/kernels/match.py:88", "max_abs_err": max(errs),
+        "ms": track["ms"], "plain_ms": track["plain_ms"], "ms_by_shape": by_shape,
+    }
+
+
+def cholesky_phase(dev, card: str) -> dict:
+    """Kernel D against ``torch.linalg.cholesky_ex`` on SPD matrices scaled
+    like the EKF's innovation matrix (eigenvalues from sigma_obs^2 = 1 to
+    1e3 px^2), at n = 512 (the default caps) and 256 (128 rays)."""
+    from ptzjax_torch.kernels import cholesky as kc
+
+    rng = np.random.default_rng(2)
+    errs, times = [], {}
+    for n in (512, 256):
+        u, _ = np.linalg.qr(rng.normal(size=(n, n)))
+        lam = np.exp(rng.uniform(0.0, np.log(1e3), n))
+        s = torch.from_numpy(((u * lam) @ u.T).astype(np.float32)).to(dev)
+        s = 0.5 * (s + s.T)
+        lk, info = kc.cholesky(s)
+        lp, info_p = kc.cholesky_plain(s)
+        torch.cuda.synchronize()
+        check(int(info) == 0 and int(info_p) == 0, f"cholesky n={n}: info {int(info)}, plain {int(info_p)}")
+        rec = float((lk @ lk.T - s).abs().max() / s.abs().max())
+        check(rec < 1e-5, f"cholesky n={n}: reconstruction error {rec}")
+        scale = float(lp.abs().max())
+        # rtol 1e-4 of the largest entry: entries near zero differ by fp32
+        # summation order, which an elementwise rtol would count as failure
+        torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-4 * scale)
+        check(not bool(lk.triu(1).any()), f"cholesky n={n}: nonzero above the diagonal")
+        bad = s.clone()
+        bad[n // 3, n // 3] = -1.0
+        _, info_k = kc.cholesky(bad)
+        _, info_b = kc.cholesky_plain(bad)
+        check(int(info_k) > 0 and int(info_b) > 0, f"cholesky n={n}: non-PD info {int(info_k)}, plain {int(info_b)}")
+        err = float((lk - lp).abs().max())
+        errs.append(err)
+        times[n] = (time_ms(lambda: kc.cholesky(s)), time_ms(lambda: kc.cholesky_plain(s)))
+        print(
+            f"cholesky n={n}: reconstruction {rec} (< 1e-5), L max_abs_err {err} vs cuSOLVER "
+            f"(max|L| {scale}, tolerance 1e-4 of it), non-PD info {int(info_k)} (plain "
+            f"{int(info_b)}); kernel {times[n][0]:.4f} ms, plain {times[n][1]:.4f} ms [{card}]"
+        )
+    return {
+        "name": "cholesky", "route": "cuda", "source": "ptzjax_torch/csrc/cholesky.cu",
+        "replaces": "ptzjax/kernels/cholesky_pallas.py:139", "max_abs_err": max(errs),
+        "ms": times[512][0], "plain_ms": times[512][1],
+        "ms_by_shape": {f"n={n}": {"ms": a, "plain_ms": b} for n, (a, b) in times.items()},
+    }
+
+
+KERNEL_MODULES = ("harris_nms", "window_gather", "match", "cholesky")
+COUNTER_NAMES = ("harris_nms", "gather_windows", "match_scores", "cholesky")
+
+
+def reset_counts() -> None:
+    for mod in KERNEL_MODULES:
+        importlib.import_module(f"ptzjax_torch.kernels.{mod}").launches = 0
+
+
+def read_counts() -> dict:
+    return {
+        name: importlib.import_module(f"ptzjax_torch.kernels.{mod}").launches
+        for mod, name in zip(KERNEL_MODULES, COUNTER_NAMES)
+    }
+
+
+def expected_counts(infos) -> dict:
+    """What the call sites launch in ``run_slice``: detection and windows on
+    every frame (``init``'s included), the matcher on every tracked frame,
+    every keyframe insert (the bootstrap's included) and every
+    relocalization frame, the Cholesky on every tracked frame."""
+    event = infos.event.cpu().numpy()
+    tracked, relocs = int((event == 0).sum()), int((event == 1).sum())
+    inserts = int(infos.keyframe.sum())
+    frames = len(event) + 1
+    return {
+        "harris_nms": frames, "gather_windows": frames,
+        "match_scores": tracked + inserts + 1 + relocs, "cholesky": tracked,
+    }
+
+
+BLACKOUT = range(140, 147)   # 7 frames after the frame-120 cadence insert
+
+
+def blackout_phase(imgs: torch.Tensor, cams, intr, mode: str, card: str) -> dict:
+    """4c: the sequence with the BLACKOUT frames zeroed; tracking must go
+    lost, relocalize and recover. Returns the run's launch counts."""
+    frames = imgs.shape[0]
+    dark = imgs.clone()
+    dark[BLACKOUT.start:BLACKOUT.stop] = 0.0
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, infos = run_slice(dark, cams, intr, reloc_mode=mode)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = expected_counts(infos)
+    idx = np.arange(1, frames)                       # frame number of each FrameInfo
+    lost = infos.lost.cpu().numpy()
+    event = infos.event.cpu().numpy()
+    success = infos.reloc_success.cpu().numpy()
+    pose = infos.pose.cpu().numpy()
+    recovered = idx[(event == 1) & success]
+    print(
+        f"blackout frames {BLACKOUT.start}-{BLACKOUT.stop - 1}, reloc_mode={mode}: lost frames "
+        f"{idx[lost].tolist()}, relocalizations {int((event == 1).sum())} (successful at "
+        f"{recovered.tolist()}), keyframe inserts {int(infos.keyframe.sum())}; launches {counts}"
+    )
+    check(lost[np.isin(idx, list(BLACKOUT))].any(), f"{mode}: no frame lost in the blackout")
+    check(len(recovered) >= 1, f"{mode}: no successful relocalization")
+    first = int(recovered[0])
+    late = idx >= BLACKOUT.stop + 15
+    check(not lost[late].any(), f"{mode}: lost frames after recovery at {idx[late & lost]}")
+    after = (idx > first) & (event == 0)
+    pan_mae = float(np.abs(pose[after, 0] - cams[idx[after], 0]).mean())
+    check(np.isfinite(pose).all(), f"{mode}: poses not finite")
+    check(pan_mae < 3e-3, f"{mode}: pan MAE after recovery {pan_mae} >= 3e-3")
+    check(counts == want, f"{mode}: launches {counts}, call sites give {want}")
+    print(
+        f"blackout reloc_mode={mode}: first recovered frame {first}, pan MAE over the "
+        f"{int(after.sum())} tracked frames after it {pan_mae} rad; wall {wall:.3f} s, "
+        f"{frames / wall:.2f} frames/s [{card}]"
+    )
+    return counts
 
 
 def main() -> int:
@@ -160,8 +377,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
         return 1
     from ptzjax_torch.kernels import _build
-    from ptzjax_torch.kernels import harris_nms as hn
-    from ptzjax_torch.kernels import window_gather as wg
 
     # 1. device and flags
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -189,6 +404,8 @@ def main() -> int:
     imgs_np, cams, intr = render(frames, w, h)
     imgs = torch.from_numpy(imgs_np).to(dev)
     kernels = kernel_phase(imgs[0], card)
+    kernels.append(matcher_phase(dev, card))
+    kernels.append(cholesky_phase(dev, card))
 
     # 4a. the first frames through the same code on the CPU (plain
     # versions) and on the card: the reference check on a small input
@@ -202,19 +419,18 @@ def main() -> int:
     check(dpose[:, :2].max() < 5e-4 and dpose[:, 2].max() < 2.0, f"CPU/GPU poses differ by {dpose.max(0)}")
     print(f"first {n_ref} frames, card vs CPU: max |d pan,tilt| {dpose[:, :2].max()} rad, max |d f| {dpose[:, 2].max()} px")
 
-    # 4b. the main path, counted: one launch of each kernel per frame
-    hn.launches = 0
-    wg.launches = 0
+    # 4b. the main path, counted: each kernel as often as its call sites say
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, infos = run_slice(imgs, cams, intr)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"harris_nms": hn.launches, "gather_windows": wg.launches}
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    launches = read_counts()
+    want = expected_counts(infos)
     print(f"launches over the {frames}-frame main path: {launches}")
-    check(all(v == frames for v in launches.values()), f"expected {frames} launches each, got {launches}")
+    check(launches == want, f"launches {launches}, call sites give {want}")
+    check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
 
     pose = infos.pose.cpu().numpy()
     lost = infos.lost.cpu().numpy()
@@ -234,6 +450,14 @@ def main() -> int:
     check(not lost.any(), f"lost frames at {np.nonzero(lost)[0]}")
     check(pan_mae < 3e-3, f"pan MAE {pan_mae} >= 3e-3")
     check(inserts >= 1 and int(state.kf.count) >= 2, "no keyframe insert ran windowed BA")
+
+    # 4c. blackout, relocalization and recovery, in both reloc modes
+    by_path = {"main": launches}
+    for mode in ("map", "keyframe"):
+        by_path[f"blackout_{mode}"] = blackout_phase(imgs, cams, intr, mode, card)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -1,8 +1,9 @@
 """ptzjax_torch — the PyTorch + CUDA (Hopper) port of ptzjax.
 
-The from-pixels SLAM main path in plain PyTorch, with the two kernels it
-reaches (Harris+NMS detection and the descriptor window gather) written by
-hand in CUDA C++ under ``csrc/``. A CPU tensor takes each kernel's plain
+The from-pixels SLAM main path and relocalization in plain PyTorch, with
+the four kernels they reach (Harris+NMS detection, the descriptor window
+gather, the fused descriptor matcher and the EKF innovation Cholesky)
+written by hand in CUDA C++ under ``csrc/``. A CPU tensor takes each kernel's plain
 torch version; a CUDA tensor launches the kernel. The module and function
 names follow ``ptzjax`` so each counterpart is easy to find.
 """

@@ -12,8 +12,10 @@ Masking: an inactive or unobserved slot has its H rows and innovation
 zeroed, so the update is exactly the update of the observed subproblem;
 inactive P blocks are kept at identity.
 
-The innovation solve uses ``torch.linalg.cholesky_ex`` and a Cholesky
-solve in full fp32. The reference's blocked factor-and-invert
+The innovation matrix S is factored by ``kernels.cholesky.cholesky`` (the
+Hopper kernel on the card, ``torch.linalg.cholesky_ex`` on the CPU) and
+solved with ``torch.cholesky_solve``, in full fp32. The reference's blocked
+factor-and-invert
 (``_inv_chol`` / ``_inv_lower``) and its matmul precision tiers are TPU
 workarounds and are not ported. A non-PD innovation matrix does not raise:
 its factor is set to NaN, the NaN reaches the finiteness check and the
@@ -30,6 +32,7 @@ import torch
 from ptzjax_torch import _device
 from ptzjax_torch.config import SLAMConfig
 from ptzjax_torch.geometry import Intrinsics, back_project_pixels, project_jacobians
+from ptzjax_torch.kernels.cholesky import cholesky
 
 
 class EKFState(NamedTuple):
@@ -202,7 +205,7 @@ def update(
     r_diag = torch.full((2 * n,), sig2, dtype=torch.float32, device=dev)
     s = s + torch.diag(r_diag)
     # K = PHT S^-1 through the Cholesky factor of S
-    chol, info = torch.linalg.cholesky_ex(s)
+    chol, info = cholesky(s)
     chol = _nan_if_failed(chol, info)
     k = torch.cholesky_solve(ph_t.T.contiguous(), chol).T  # (D, 2N)
 

@@ -1,10 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Both ``csrc/*.cu`` files are compiled by ONE ``nvcc`` call into a shared
-library with a plain C interface, at first use, into ``build/ptzjax_torch/``
-at the root of the checkout. The file name carries a hash of the sources and
-the flags, so an edit to either rebuilds and an unchanged tree reuses the
-library. The library is loaded with ``ctypes``: pointers and the stream go
+All ``csrc/*.cu`` files are compiled in parallel (one ``nvcc -c`` each) and
+linked into one shared library with a plain C interface, at first use, in
+``build/ptzjax_torch/`` at the root of the checkout. The file name carries a
+hash of the sources and the flags, so an edit to either rebuilds and an
+unchanged tree reuses the library. The library is loaded with ``ctypes``: pointers and the stream go
 in as ``c_void_p``, and each entry point returns ``cudaGetLastError()``.
 
 Nothing here falls back: a missing ``nvcc``, a failed build or a non-zero
@@ -18,16 +18,18 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("harris_nms.cu", "gather_windows.cu")
+SOURCES = ("harris_nms.cu", "gather_windows.cu", "match.cu", "cholesky.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ptzjax_torch"
-# -fmad=false: no multiply-add contraction, so the Harris kernel rounds once
-# per operation like the plain torch version (see csrc/harris_nms.cu)
+# -fmad=false: no multiply-add contraction, so the Harris kernel and the
+# matcher's gate round once per operation like the plain torch versions (see
+# csrc/harris_nms.cu); where a kernel wants an FMA it writes __fmaf_rn
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+    "-Xcompiler", "-fPIC", "-fmad=false",
 )
 
 _lib: ctypes.CDLL | None = None
@@ -57,21 +59,35 @@ def library_path() -> Path:
     return BUILD_DIR / f"libptzjax_torch_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(_CSRC / name) for name in SOURCES]
+def _run(cmd: list[str]) -> None:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed with code {proc.returncode}: {' '.join(cmd)}\n"
             f"{proc.stderr}"
         )
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists: one
+    ``nvcc -c`` per source, all started together, then one link."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in SOURCES]
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(
+            _run,
+            [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(_CSRC / name)]
+             for name, o in zip(SOURCES, objs)],
+        ))
+    tmp = out.with_name(f"{tag}.so.tmp")
+    _run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)])
+    for o in objs:
+        o.unlink()
     os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
     return out
 
@@ -86,6 +102,10 @@ def load() -> ctypes.CDLL:
         lib.ptz_harris_nms.restype = ci
         lib.ptz_gather_windows.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.ptz_gather_windows.restype = ci
+        lib.ptz_match.argtypes = [vp] * 6 + [cf] + [ci] * 6 + [vp] * 8 + [ci, vp]
+        lib.ptz_match.restype = ci
+        lib.ptz_cholesky.argtypes = [vp, vp, vp, ci, ci, vp]
+        lib.ptz_cholesky.restype = ci
         lib.ptz_error_string.argtypes = [ci]
         lib.ptz_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,5 +1,7 @@
 """Descriptor matching, pan-tilt consensus and slot scatter. Port of
-``ptzjax/match.py`` (plain torch; the matcher kernel is later work).
+``ptzjax/match.py``. Both matchers reduce the masked score matrix through
+``kernels.match.match_scores`` (the Hopper kernel on the card, its plain
+version on the CPU) and take their decisions here.
 
 Descriptors are unit-norm, so squared L2 distance = 2 - 2 * cosine and the
 Lowe ratio test ``d1/d2 < ratio`` becomes ``(1 - s1) < ratio^2 (1 - s2)``.
@@ -10,6 +12,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ptzjax_torch.kernels.match import match_scores
 
 _NEG = -1e9
 
@@ -28,24 +32,21 @@ class MatchResult(NamedTuple):
     score: torch.Tensor
 
 
-def _masked_scores(d_query, d_ref, q_valid, r_valid) -> torch.Tensor:
-    s = d_query @ d_ref.T
-    return torch.where(q_valid[:, None] & r_valid[None, :], s, torch.full_like(s, _NEG))
-
-
-def _top2(s: torch.Tensor):
-    """Row-wise (best idx, best val, second val); argmax takes the first of
-    equal maxima, as ``jnp.argmax`` does."""
-    i1 = torch.argmax(s, dim=1)
-    v1 = torch.gather(s, 1, i1[:, None])[:, 0]
-    cols = torch.arange(s.shape[1], device=s.device)
-    v2 = torch.where(cols[None, :] == i1[:, None], torch.full_like(s, _NEG), s).amax(1)
-    return i1.to(torch.int32), v1, v2
-
-
-def _mutual(s: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    col_best = torch.argmax(s, dim=0)                     # (R,)
-    return col_best[idx] == torch.arange(s.shape[0], device=s.device)
+def _decide(q_valid, i1, v1, v2, col_best, ratio, min_score, gated) -> MatchResult:
+    """Lowe ratio, absolute score floor and (when ``col_best`` is given) the
+    mutual-best check on the matcher's per-row reductions; one function for
+    the kernel and the plain version."""
+    d1 = (1.0 - v1).clamp_min(0.0)
+    d2 = (1.0 - v2).clamp_min(1e-12)
+    ratio_ok = d1 < ratio * ratio * d2
+    if gated:
+        # ratio only when a second candidate exists inside the gate
+        ratio_ok = torch.where(v2 > _NEG / 2, ratio_ok, torch.ones_like(ratio_ok))
+    ok = q_valid & (v1 > min_score) & ratio_ok
+    if col_best is not None:
+        rows = torch.arange(i1.shape[0], dtype=torch.int32, device=i1.device)
+        ok = ok & (col_best[i1] == rows)
+    return MatchResult(idx=torch.where(ok, i1, torch.zeros_like(i1)), ok=ok, score=v1)
 
 
 def match_descriptors(
@@ -54,14 +55,8 @@ def match_descriptors(
 ) -> MatchResult:
     """BF match with Lowe ratio, absolute score floor, and optional
     mutual-best check (d_query (Q, D), d_ref (R, D), unit rows)."""
-    s = _masked_scores(d_query, d_ref, q_valid, r_valid)
-    idx, v1, v2 = _top2(s)
-    d1 = (1.0 - v1).clamp_min(0.0)
-    d2 = (1.0 - v2).clamp_min(1e-12)
-    ok = q_valid & (v1 > min_score) & (d1 < ratio * ratio * d2)
-    if mutual:
-        ok = ok & _mutual(s, idx)
-    return MatchResult(idx=torch.where(ok, idx, torch.zeros_like(idx)), ok=ok, score=v1)
+    i1, v1, v2, col_best = match_scores(d_query, d_ref, q_valid, r_valid, mutual=mutual)
+    return _decide(q_valid, i1, v1, v2, col_best, ratio, min_score, gated=False)
 
 
 def match_gated(
@@ -70,17 +65,10 @@ def match_gated(
 ) -> MatchResult:
     """Match with a spatial gate: a query keypoint may only match reference
     entries whose predicted pixel position lies within ``gate_px``."""
-    s = _masked_scores(d_query, d_ref, q_valid, r_valid)
-    d2 = ((xy_query[:, None, :] - xy_ref_pred[None, :, :]) ** 2).sum(-1)
-    s = torch.where(d2 <= gate_px * gate_px, s, torch.full_like(s, _NEG))
-    idx, v1, v2 = _top2(s)
-    dd1 = (1.0 - v1).clamp_min(0.0)
-    dd2 = (1.0 - v2).clamp_min(1e-12)
-    # ratio only when a second candidate exists inside the gate
-    has2 = v2 > _NEG / 2
-    ratio_ok = torch.where(has2, dd1 < ratio * ratio * dd2, torch.ones_like(has2))
-    ok = q_valid & (v1 > min_score) & ratio_ok & _mutual(s, idx)
-    return MatchResult(idx=torch.where(ok, idx, torch.zeros_like(idx)), ok=ok, score=v1)
+    i1, v1, v2, col_best = match_scores(
+        d_query, d_ref, q_valid, r_valid, xy_query, xy_ref_pred, gate_px=gate_px
+    )
+    return _decide(q_valid, i1, v1, v2, col_best, ratio, min_score, gated=True)
 
 
 def stable_topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -1,10 +1,12 @@
 """Relocalization: recover (pan, tilt, focal) when tracking is lost. Port of
-the map path of ``ptzjax/reloc.py``.
+``ptzjax/reloc.py``: the map path (``relocalize``) and the nearest-keyframe
+path (``relocalize_keyframes``).
 
-The lost frame's descriptors are matched against the global ray store, a
-focal-grid sweep lets every correspondence vote a (pan, tilt) in closed
-form, the densest vote wins, and two rounds of gating + Huber-weighted
-Gauss-Newton refine all three parameters.
+The lost frame's descriptors are matched against the global ray store (or
+every keyframe's feature table), a focal-grid sweep lets every
+correspondence vote a (pan, tilt) in closed form, the densest vote wins,
+and two rounds of gating + Huber-weighted Gauss-Newton refine all three
+parameters.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from ptzjax_torch import _device
 from ptzjax_torch import match as matchlib
 from ptzjax_torch.config import SLAMConfig
 from ptzjax_torch.geometry import Intrinsics, project_jacobians
-from ptzjax_torch.mapstore import RayStore
+from ptzjax_torch.mapstore import KeyframeStore, RayStore
 
 
 class RelocResult(NamedTuple):
@@ -132,5 +134,58 @@ def relocalize(
         inliers=n2,
         success=success,
         matched_ray_ids=torch.where(inl2, m.idx, -1),
+        matched_ok=inl2,
+    )
+
+
+def relocalize_keyframes(
+    desc, xy, valid, kf: KeyframeStore, ray_store: RayStore, intr: Intrinsics,
+    cfg: SLAMConfig, f_range: tuple[float, float] = (800.0, 6000.0), num_f: int = 32,
+    tol_px: float = 8.0,
+) -> RelocResult:
+    """Nearest-keyframe relocalization: one (Q, K*F) match against every
+    keyframe's features, a per-keyframe vote picks the nearest keyframe, and
+    its 2D <-> ray correspondences are refined from that keyframe's stored
+    pose; the focal-grid vote replaces the result when it finds more
+    inliers."""
+    k, f, d = kf.desc.shape
+    flat_desc = kf.desc.reshape(k * f, d)
+    flat_ok = (kf.feat_valid & kf.valid[:, None] & (kf.ray_ids >= 0)).reshape(-1)
+    m = matchlib.match_descriptors(
+        desc, flat_desc, valid, flat_ok, ratio=cfg.ratio_test, mutual=False
+    )
+    kf_of = m.idx // f
+    # the reference's drop-mode scatter: misses vote into a padded row k
+    votes = torch.zeros(k + 1, dtype=torch.int32, device=desc.device).index_add_(
+        0, torch.where(m.ok, kf_of, k).long(), torch.ones_like(kf_of)
+    )[:k]
+    kbest = torch.argmax(votes, dim=0, keepdim=True)   # (1,): no host read
+
+    ray_ids = kf.ray_ids.reshape(-1)[m.idx]
+    ok = m.ok & (kf_of == kbest) & (ray_ids >= 0)
+    mrays = ray_store.rays[ray_ids.clamp_min(0)]
+
+    # pose init: the nearest keyframe's stored pose (refine handles the rest)
+    init = kf.poses.index_select(0, kbest)[0]
+    inl0, _ = _count_inliers(init, mrays, xy, ok, intr, 4 * tol_px)
+    pose1 = solve_pose(mrays, xy, inl0, intr, init, iters=cfg.reloc_iters)
+    inl1, _ = _count_inliers(pose1, mrays, xy, ok, intr, tol_px)
+    pose2 = solve_pose(mrays, xy, inl1, intr, pose1, iters=cfg.reloc_iters)
+    inl2, n2 = _count_inliers(pose2, mrays, xy, ok, intr, tol_px)
+
+    # fall back to the focal-grid vote when the keyframe seed fails (e.g. the
+    # camera zoomed far between losing and recovering)
+    pose_v, inl_v, n_v, _ = solve_from_correspondences(
+        mrays, xy, ok, intr, cfg, f_range=f_range, num_f=num_f, tol_px=tol_px
+    )
+    use_vote = n_v > n2
+    pose2 = torch.where(use_vote, pose_v, pose2)
+    inl2 = torch.where(use_vote, inl_v, inl2)
+    n2 = torch.where(use_vote, n_v, n2)
+    return RelocResult(
+        pose=pose2,
+        inliers=n2,
+        success=n2 >= cfg.reloc_min_matches,
+        matched_ray_ids=torch.where(inl2, ray_ids, -1),
         matched_ok=inl2,
     )

@@ -74,15 +74,11 @@ class PTZSlam:
         state, infos = slam.run_segment_pixels(state, frames)
 
     Tensors stay on the device of the features given to ``init`` and the
-    frames given to ``run_segment_pixels``.
+    frames given to ``run_segment_pixels``; the features entry points
+    (``process``, ``run_segment``) move their inputs to the state's device.
     """
 
     def __init__(self, cfg: SLAMConfig, intr: Intrinsics):
-        if cfg.reloc_mode == "keyframe":
-            raise NotImplementedError(
-                "reloc_mode='keyframe' (relocalize_keyframes) is not ported yet; "
-                "use reloc_mode='map'"
-            )
         self.cfg = cfg
         self.intr = intr
 
@@ -106,6 +102,29 @@ class PTZSlam:
     def step(self, state: SlamState, xy, desc, valid) -> tuple[SlamState, FrameInfo]:
         """One frame from features."""
         return _frame_step(state, xy, desc, valid, cfg=self.cfg, intr=self.intr)
+
+    def process(self, state: SlamState, xy, desc, valid) -> tuple[SlamState, dict[str, Any]]:
+        """One frame from features (tensors or arrays) + its host info dict."""
+        dev = state.ekf.cam.device
+        state, finfo = self.step(
+            state, *(torch.as_tensor(v, device=dev) for v in (xy, desc, valid))
+        )
+        return state, info_to_dict(finfo)
+
+    def run_segment(
+        self, state: SlamState, xy_seq, desc_seq, valid_seq, frame_ok=None
+    ) -> tuple[SlamState, FrameInfo]:
+        """A chunk of frames from features: xy (T, Q, 2), desc (T, Q, D),
+        valid (T, Q). ``frame_ok`` (T,) marks real frames (a False frame
+        passes the state through). Returns the final state and the FrameInfo
+        fields stacked over T."""
+        dev = state.ekf.cam.device
+        xy_seq, desc_seq, valid_seq = (
+            torch.as_tensor(v, device=dev) for v in (xy_seq, desc_seq, valid_seq)
+        )
+        return _run_segment(
+            state, xy_seq, desc_seq, valid_seq, frame_ok, cfg=self.cfg, intr=self.intr
+        )
 
     def run_segment_pixels(
         self, state: SlamState, imgs, masks=None, frame_ok=None
@@ -325,11 +344,15 @@ def _insert_keyframe(state: SlamState, xy, desc, valid, *, cfg, intr) -> SlamSta
 
 
 def _relocalize(state: SlamState, xy, desc, valid, *, cfg, intr):
-    """Recover from lost tracking against the map, then rebuild the EKF
-    around the recovered pose with the inlier rays (one host read of the
-    success flag)."""
+    """Recover from lost tracking, then rebuild the EKF around the recovered
+    pose with the inlier rays (one host read of the success flag).
+    ``cfg.reloc_mode`` selects the backend: "map" matches the global ray
+    store, "keyframe" does the nearest-keyframe lookup."""
     dev = xy.device
-    res = reloclib.relocalize(desc, xy, valid, state.rays, intr, cfg)
+    if cfg.reloc_mode == "keyframe":
+        res = reloclib.relocalize_keyframes(desc, xy, valid, state.kf, state.rays, intr, cfg)
+    else:
+        res = reloclib.relocalize(desc, xy, valid, state.rays, intr, cfg)
     if bool(res.success):
         ekf_state = ekflib.init_state(res.pose, cfg)
         # seed slots with the reloc inlier rays at their map positions
@@ -480,12 +503,36 @@ def _skip_info(s: SlamState) -> FrameInfo:
     )
 
 
+def _frame_flags(frame_ok, t: int) -> list[bool]:
+    """``frame_ok`` as host booleans (one read), all True when None."""
+    return [True] * t if frame_ok is None else [bool(v) for v in torch.as_tensor(frame_ok).tolist()]
+
+
+def _stack(infos: list[FrameInfo]) -> FrameInfo:
+    return FrameInfo(*(torch.stack(list(field)) for field in zip(*infos)))
+
+
+def _run_segment(state: SlamState, xy_seq, desc_seq, valid_seq, frame_ok, *, cfg, intr):
+    """Features -> SLAM step, frame by frame; a False ``frame_ok`` frame is a
+    no-op."""
+    infos = []
+    for i, ok in enumerate(_frame_flags(frame_ok, xy_seq.shape[0])):
+        if ok:
+            state, info = _frame_step(
+                state, xy_seq[i], desc_seq[i], valid_seq[i], cfg=cfg, intr=intr
+            )
+        else:
+            info = _skip_info(state)
+        infos.append(info)
+    return state, _stack(infos)
+
+
 def _run_segment_pixels(state: SlamState, imgs, masks, frame_ok, *, cfg, intr):
     """Raw frames -> features -> SLAM step, frame by frame. The descriptor
     scale uses the LIVE focal estimate, sanitized: a non-finite or
     non-positive focal falls back to the bootstrap f_ref."""
     t = imgs.shape[0]
-    ok = [True] * t if frame_ok is None else [bool(v) for v in torch.as_tensor(frame_ok).tolist()]
+    ok = _frame_flags(frame_ok, t)
     f_ref = cfg.descriptor_f_ref if cfg.descriptor_f_ref > 0 else 1000.0
     infos = []
     for i in range(t):
@@ -499,7 +546,7 @@ def _run_segment_pixels(state: SlamState, imgs, masks, frame_ok, *, cfg, intr):
         )
         state, info = _frame_step(state, xy, desc, valid, cfg=cfg, intr=intr)
         infos.append(info)
-    return state, FrameInfo(*(torch.stack(list(field)) for field in zip(*infos)))
+    return state, _stack(infos)
 
 
 def _info_dict(h: FrameInfo, k: int | None) -> dict[str, Any]:

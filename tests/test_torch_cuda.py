@@ -16,8 +16,10 @@ from ptzjax_torch import synth
 from ptzjax_torch.config import SLAMConfig
 from ptzjax_torch.frontend import extract_features
 from ptzjax_torch.geometry import Intrinsics
+from ptzjax_torch.kernels import cholesky as tch
 from ptzjax_torch.kernels import descriptor as tdesc
 from ptzjax_torch.kernels import harris_nms as thn
+from ptzjax_torch.kernels import match as tkm
 from ptzjax_torch.kernels import window_gather as twg
 from ptzjax_torch.slam import PTZSlam
 
@@ -94,6 +96,80 @@ def test_wrappers_reject_bad_inputs(cuda_device):
         twg.gather_windows(img.float(), idx, idx, 18)   # int64 starts
     with pytest.raises(ValueError):
         twg.gather_windows(img.float(), idx.int(), idx.int(), 60)   # window larger than image
+    d = torch.zeros((4, 8), device=cuda_device)
+    ok = torch.ones(4, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError):
+        tkm.match_scores(d, d.double(), ok, ok)          # float64 reference
+    with pytest.raises(ValueError):
+        tkm.match_scores(d, d, ok.int(), ok)             # int validity
+    with pytest.raises(ValueError):
+        tkm.match_scores(d, d, ok, ok, d, d, 5.0)        # (4, 8) positions
+    with pytest.raises(ValueError):
+        tch.cholesky(img.float())                        # not square
+    with pytest.raises(ValueError):
+        tch.cholesky(torch.eye(4, dtype=torch.float64, device=cuda_device))
+
+
+def _unit(x):
+    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize(
+    "q,r,gated,mutual",
+    [(512, 256, True, True), (300, 700, False, True), (512, 4096, False, False),
+     (70, 1, False, True), (5, 300, True, True), (33, 130, False, False)],
+)
+def test_match_scores_matches_plain(cuda_device, q, r, gated, mutual):
+    """Several CTAs and chunks, a ragged last tile, R = 1 and a single query
+    block; exact duplicate reference rows and all-invalid query rows. Only
+    rows whose top-2 margin is under 1e-6 may pick another index."""
+    rng = np.random.default_rng(q + r)
+    dr = _unit(rng.normal(size=(r, 128)))
+    src = rng.integers(0, r, q)
+    dq = _unit(dr[src] + 0.05 * rng.normal(size=(q, 128)))
+    if r > 2:
+        dr[1] = dr[0]
+        dq[0] = dr[0]
+    qv = rng.random(q) > 0.1
+    qv[-1] = False
+    rv = rng.random(r) > 0.1
+    xr = rng.uniform(0, 640, (r, 2)).astype(np.float32)
+    xq = (xr[src] + rng.normal(0, 30, (q, 2))).astype(np.float32)
+    args = tuple(torch.from_numpy(a).to(cuda_device) for a in (dq, dr, qv, rv))
+    if gated:
+        args += (torch.from_numpy(xq).to(cuda_device), torch.from_numpy(xr).to(cuda_device), 60.0)
+    before = tkm.launches
+    i1, v1, v2, cb = tkm.match_scores(*args, mutual=mutual)
+    assert tkm.launches == before + 1
+    p_i1, p_v1, p_v2, p_cb = tkm.match_scores_plain(*args, mutual=mutual)
+    torch.testing.assert_close(v1, p_v1, rtol=0, atol=1e-5)
+    torch.testing.assert_close(v2, p_v2, rtol=0, atol=1e-5)
+    near = ((p_v1 - p_v2) < 1e-6) & (p_v1 > -5e8)
+    assert torch.equal(i1[~near], p_i1[~near])
+    assert (cb is None) == (not mutual)
+    if mutual:
+        assert cb.dtype == torch.int32 and cb.shape == (r,)
+        assert int((cb != p_cb).sum()) <= int(near.sum())
+
+
+@pytest.mark.parametrize("n", [512, 256, 33, 1, 900])
+def test_cholesky_matches_cusolver(cuda_device, n):
+    """The EKF's n = 512 and 256, a ragged last panel, a single pivot, and a
+    size whose trailing rows are staged in two slots."""
+    rng = np.random.default_rng(n)
+    a = rng.normal(size=(n, n)).astype(np.float32) * 0.1
+    s = torch.from_numpy(a @ a.T + np.eye(n, dtype=np.float32)).to(cuda_device)
+    before = tch.launches
+    got, info = tch.cholesky(s)
+    assert tch.launches == before + 1
+    ref, info_p = tch.cholesky_plain(s)
+    assert int(info) == int(info_p) == 0 and info.dtype == torch.int32
+    assert float((got @ got.T - s).abs().max() / s.abs().max()) < 1e-5
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+    assert not bool(got.triu(1).any())
+    bad = s.clone()
+    bad[n // 2, n // 2] = -1.0
+    assert int(tch.cholesky(bad)[1]) == int(tch.cholesky_plain(bad)[1]) > 0
 
 
 def test_slice_on_card_matches_cpu(cuda_device):
@@ -118,3 +194,35 @@ def test_slice_on_card_matches_cpu(cuda_device):
     assert k_gpu.sum() >= 2 and not l_gpu.any()
     dpose = np.abs(p_gpu - p_cpu)
     assert dpose[:, :2].max() < 5e-4 and dpose[:, 2].max() < 2.0
+
+
+def _blackout_run(dev, imgs, cams, intr, mode):
+    cfg = SLAMConfig(
+        image_width=W, image_height=H, max_keypoints=160, max_rays=96, max_map_rays=1024,
+        max_keyframes=16, min_inliers=10, keyframe_interval=6, reloc_mode=mode,
+    )
+    slam = PTZSlam(cfg, intr)
+    frames = torch.from_numpy(imgs).to(dev)
+    counts = (tkm.launches, tch.launches)
+    state = slam.init(*extract_features(frames[0], slam.cfg), cams[0])
+    _, infos = slam.run_segment_pixels(state, frames[1:])
+    launched = (tkm.launches - counts[0], tch.launches - counts[1])
+    return [v.cpu().numpy() for v in (infos.pose, infos.lost, infos.event, infos.reloc_success, infos.keyframe)], launched
+
+
+@pytest.mark.parametrize("mode", ["map", "keyframe"])
+def test_blackout_slice_on_card_matches_cpu(cuda_device, mode):
+    """Frames 14-17 black: tracking goes lost, relocalizes and recovers, on
+    the card (through the matcher and Cholesky kernels) as on the CPU."""
+    imgs, cams, intr = _render(30)
+    imgs[14:18] = 0.0
+    (p_c, l_c, e_c, r_c, _), _ = _blackout_run("cpu", imgs, cams, intr, mode)
+    (p_g, l_g, e_g, r_g, k_g), (n_match, n_chol) = _blackout_run(cuda_device, imgs, cams, intr, mode)
+    np.testing.assert_array_equal(l_g, l_c)
+    np.testing.assert_array_equal(e_g, e_c)
+    np.testing.assert_array_equal(r_g, r_c)
+    assert l_g[13:17].any() and r_g.any() and not l_g[-8:].any()
+    dpose = np.abs(p_g - p_c)
+    assert dpose[:, :2].max() < 5e-4 and dpose[:, 2].max() < 2.0
+    tracked, relocs = int((e_g == 0).sum()), int((e_g == 1).sum())
+    assert n_match == tracked + int(k_g.sum()) + 1 + relocs and n_chol == tracked

@@ -2,8 +2,8 @@
 tracks a short rendered sequence (with keyframe inserts, so the map holds
 several keyframes), its state is carried into the port with
 ``ptzjax_torch.convert``, and the EKF update, the BA problem assembly, the
-LM solver, the windowed BA and relocalization then run in both packages on
-the same inputs."""
+LM solver, the windowed BA and relocalization (map and nearest-keyframe)
+then run in both packages on the same inputs."""
 
 from functools import partial
 
@@ -239,7 +239,43 @@ def test_relocalize_branch_rebuilds_the_filter(shared):
     np.testing.assert_allclose(n(got_state.slot_desc), ref_state.slot_desc, atol=1e-6)
 
 
-def test_keyframe_reloc_mode_refused_at_construction():
-    cfg = port_cfg(small_cfg(reloc_mode="keyframe"))
-    with pytest.raises(NotImplementedError):
-        tslam.PTZSlam(cfg, port_intr(render(1)[2]))
+def test_relocalize_keyframes(shared):
+    """The nearest-keyframe backend on a frame further along the sequence:
+    the flat (Q, K*F) one-way match, the per-keyframe vote, the keyframe-pose
+    seed and the focal-grid fallback give the same result in both packages."""
+    cfg, intr, imgs, cams, host, jstate = shared
+    xy, desc, valid = j_extract(jnp.asarray(imgs[15]), cfg, use_pallas=False, focal=jnp.asarray(cams[15][2]))
+    ref = jreloc.relocalize_keyframes(desc, xy, valid, jstate.kf, jstate.rays, intr, cfg)
+    state_t = convert.state_from_jax_numpy(host, "cpu")
+    got = treloc.relocalize_keyframes(
+        t(desc), t(xy), t(valid), state_t.kf, state_t.rays, port_intr(intr), port_cfg(cfg)
+    )
+    assert bool(ref.success) and bool(got.success)
+    np.testing.assert_allclose(n(got.pose)[:2], n(ref.pose)[:2], atol=1e-4)
+    np.testing.assert_allclose(n(got.pose)[2], n(ref.pose)[2], atol=0.5)
+    assert int(got.inliers) == int(ref.inliers)
+    np.testing.assert_array_equal(n(got.matched_ray_ids), n(ref.matched_ray_ids))
+    np.testing.assert_array_equal(n(got.matched_ok), n(ref.matched_ok))
+    err = np.abs(n(got.pose) - cams[15])
+    assert err[0] < 2e-3 and err[1] < 2e-3 and err[2] < 30.0, err
+
+
+def test_keyframe_reloc_mode_rebuilds_the_filter(shared):
+    """``PTZSlam`` accepts ``reloc_mode="keyframe"``, and the lost-frame branch
+    dispatches to the nearest-keyframe backend in both packages."""
+    cfg, intr, imgs, cams, host, jstate = shared
+    cfg = cfg.replace(reloc_mode="keyframe")
+    assert tslam.PTZSlam(port_cfg(cfg), port_intr(intr)).cfg.reloc_mode == "keyframe"
+    xy, desc, valid = j_extract(jnp.asarray(imgs[15]), cfg, use_pallas=False, focal=jnp.asarray(cams[15][2]))
+    reloc_j = jax.jit(partial(jslam._relocalize, cfg=cfg, intr=intr))
+    ref_state, ref_info = jax.device_get(reloc_j(jstate._replace(lost=jnp.asarray(True)), xy, desc, valid))
+    lost_t = convert.state_from_jax_numpy(host, "cpu")._replace(lost=torch.tensor(True))
+    got_state, got_info = tslam._relocalize(
+        lost_t, t(xy), t(desc), t(valid), cfg=port_cfg(cfg), intr=port_intr(intr)
+    )
+    assert bool(ref_info.reloc_success) and bool(got_info.reloc_success)
+    assert int(got_info.num_used) == int(ref_info.num_used)
+    np.testing.assert_allclose(n(got_info.pose)[:2], ref_info.pose[:2], atol=1e-4)
+    np.testing.assert_array_equal(n(got_state.ekf.ray_ids), ref_state.ekf.ray_ids)
+    np.testing.assert_array_equal(n(got_state.ekf.rays), ref_state.ekf.rays)
+    np.testing.assert_allclose(n(got_state.slot_desc), ref_state.slot_desc, atol=1e-6)
