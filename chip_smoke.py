@@ -9,13 +9,18 @@ Phases, each of which raises (non-zero exit) on failure:
 1. device and flags: a CUDA device is required (no CPU fallback); both TF32
    flags are set to False; the card's name and power limit are printed;
 2. build: the CUDA kernels are compiled from ``ptzjax_torch/csrc`` with nvcc;
-3. kernel vs plain torch on the card, at the main path's shapes, with the
-   median time of each: (a) Harris+NMS on a 720p frame; (b) the window
-   gather, 512 windows at win 46 and 18; (c) the matcher at 512 x 256 gated
-   at 60 px (tracking), 512 x 2,048 (the matcher bench shape), 512 x 4,096
-   mutual (map relocalization) and 512 x 32,768 one-way (keyframe
-   relocalization); (d) the Cholesky factor at n = 512 and 256, and its
-   failure flag on a non-PD input;
+3. kernel vs plain torch on the card, at the main path's shapes: (a)
+   Harris+NMS on a 720p frame; (b) the window gather, 512 windows at win 46
+   and 18; (c) the matcher at 512 x 256 gated at 60 px (tracking), 512 x
+   2,048 (the matcher bench shape), 512 x 4,096 mutual (map relocalization)
+   and 512 x 32,768 one-way (keyframe relocalization), each call exactly one
+   kernel, and three calls bitwise equal at 512 x 32,768 and 512 x 256;
+   (d) the Cholesky factor at n = 512 and 256 (rows in shared memory) and
+   1,024 (rows in global memory), and its failure flag on a non-PD input.
+   For each: the event time of back-to-back calls (host work included),
+   the device time (the profiler's kernel durations), the bound (the
+   larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32) and
+   the share of it reached, and for D the time of ``torch.linalg.cholesky_ex``;
 4. the slice: ``bench.py``'s 720p sequence, continued from 120 to 192
    frames (one full period of its pan sweep) so that the product defaults'
    keyframe policy inserts keyframes (at 120 frames it inserts none),
@@ -31,7 +36,10 @@ Phases, each of which raises (non-zero exit) on failure:
    ``reloc_mode`` ("map", "keyframe"): tracking must go lost in the
    blackout, relocalize, track every frame from 15 frames after it with a
    pan error under 3e-3 rad, and the counters must again equal the call
-   sites' counts (the matcher also once per relocalization frame).
+   sites' counts (the matcher also once per relocalization frame). (d) The
+   4c sequence again, in each reloc mode, over 40 tracked frames and the
+   relocalization frames: wall time per frame (one pass) and device time and
+   kernels per frame (a second pass, under the profiler).
 
 The line before the last is one JSON object with the kernels' numbers
 (``launches`` from run 4b, ``launches_by_path`` from 4b and both 4c runs);
@@ -40,6 +48,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import subprocess
@@ -53,6 +62,101 @@ import torch
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s
+PEAK_FP32 = 67e12      # H100 SXM fp32 outside the tensor cores, flop/s
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(ms, what sets it): the least time the card could take to move
+    ``nbytes`` and do ``ops`` fp32 operations."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+# Seconds the profiled window stays open around the work: without it the
+# profiler now and then hands back only part of a batch's kernel records,
+# or none, although every kernel ran.
+PROFILER_PAD_S = 0.05
+
+
+@contextlib.contextmanager
+def profiled():
+    """A CUDA-only profiler session padded by PROFILER_PAD_S on each side,
+    synchronized before it closes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILER_PAD_S)
+
+
+def device_kernels(prof) -> list:
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_time(fn, batch: int = 50, per_call: int | None = None, tries: int = 4) -> tuple[float, dict]:
+    """(device ms per call, {kernel name: count}) from the profiler's CUDA
+    kernel records over ``batch`` calls after a warm-up. The profiler may
+    lose records but never adds any, so a short session is profiled again:
+    the answer is the first session with ``per_call * batch`` records or,
+    where ``per_call`` is not known, with as many as the session before it.
+    More records than ``per_call * batch`` fail at once."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    last = None
+    for attempt in range(tries):
+        with profiled() as prof:
+            for _ in range(batch):
+                fn()
+        kernels = device_kernels(prof)
+        names: dict = {}
+        for e in kernels:
+            names[e.name] = names.get(e.name, 0) + 1
+        n = len(kernels)
+        if per_call is not None:
+            check(n <= per_call * batch, f"{len(names)} kernel names, {n / batch} kernels per call: {names}")
+            done = n == per_call * batch
+        else:
+            done = n > 0 and n == last
+        if done:
+            total_us = sum(e.time_range.elapsed_us() for e in kernels)
+            return total_us / batch / 1e3, names
+        if last is not None or per_call is not None:
+            print(f"profiler: {n} kernel records from {batch} calls (session {attempt + 1}); profiling again")
+        last = n
+    raise RuntimeError(f"chip_smoke: no two profiler sessions of {batch} calls agreed (last {last} records)")
+
+
+def timings(fn, plain, nbytes: float, ops: float, library=None) -> dict:
+    """Event and device times of the kernel ``fn`` (one kernel a call, which
+    ``device_time`` checks), its plain version, and the one-call library
+    equivalent where there is one, with the bound."""
+    dev_ms, names = device_time(fn, per_call=1)
+    check(len(names) == 1, f"{len(names)} kernel names in one kernel a call: {names}")
+    b_ms, b_by = bound(nbytes, ops)
+    out = {
+        "ms": time_ms(fn), "device_ms": dev_ms, "plain_ms": time_ms(plain),
+        "plain_device_ms": device_time(plain)[0], "bound_ms": b_ms, "bound_by": b_by,
+        "bound_share": b_ms / dev_ms,
+        "library_ms": None if library is None else time_ms(library),
+    }
+    return out
+
+
+def describe(t: dict) -> str:
+    lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+    return (
+        f"kernel {t['ms']:.4f} ms event, {t['device_ms']:.4f} ms device (one kernel a call); "
+        f"bound {t['bound_ms']:.5f} ms by {t['bound_by']}, {100 * t['bound_share']:.2f}% of it; "
+        f"plain {t['plain_ms']:.4f} ms event, {t['plain_device_ms']:.4f} ms device; library {lib}"
+    )
 
 
 def time_ms(fn, reps: int = 5, batch: int = 50) -> float:
@@ -110,17 +214,20 @@ def kernel_phase(img: torch.Tensor, card: str) -> list[dict]:
         "harris_nms NMS keep-set differs from the plain version",
     )
     harris_err = float((rk - rp).abs().max())
-    harris_ms = time_ms(lambda: hn.harris_nms(img))
-    harris_plain_ms = time_ms(lambda: hn.harris_nms_plain(img))
+    h, w = img.shape
+    # one image read and two map writes; 78 fp32 operations a pixel (2
+    # differences and 2 scalings, 3 products, 2 x 3 five-tap passes of 5
+    # multiplies and 4 adds, 7 for the response, 10 for the NMS)
+    harris = timings(
+        lambda: hn.harris_nms(img), lambda: hn.harris_nms_plain(img), 3 * 4 * h * w, 78 * h * w
+    )
     print(
         f"harris_nms 720x1280: resp max_abs_err {harris_err} (rtol 1e-4, atol 1e-7), "
-        f"keep-sets equal; kernel {harris_ms:.4f} ms, plain {harris_plain_ms:.4f} ms "
-        f"[{card}]"
+        f"keep-sets equal; {describe(harris)} [{card}]"
     )
 
     # B: 512 windows at win 46 (per frame) and 18 (bootstrap), bitwise
     rng = np.random.default_rng(0)
-    h, w = img.shape
     gather = {}
     for win in (SCALED_WIN, PATCH + 2):
         xy = np.stack([rng.uniform(0, w - 1, 512), rng.uniform(0, h - 1, 512)], -1)
@@ -131,28 +238,35 @@ def kernel_phase(img: torch.Tensor, card: str) -> list[dict]:
         torch.cuda.synchronize()
         check(tuple(out_k.shape) == (512, win + 1, win + 1), f"gather shape {tuple(out_k.shape)}")
         check(torch.equal(out_k, out_p), f"gather_windows win {win} is not bitwise equal")
-        gather[win] = (
-            float((out_k - out_p).abs().max()),
-            time_ms(lambda: wg.gather_windows(pimg, ys, xs, win)),
-            time_ms(lambda: wg.gather_windows_plain(pimg, ys, xs, win)),
+        # the pixels the windows cover, each read once, the windows written
+        # once, and the starts read
+        side = win + 1
+        hp, wp = pimg.shape
+        r = torch.arange(side, device=img.device)
+        yy = ys.long().clamp(0, hp - side)[:, None] + r
+        xx = xs.long().clamp(0, wp - side)[:, None] + r
+        covered = torch.unique((yy[:, :, None] * wp + xx[:, None, :]).reshape(-1)).numel()
+        gather[win] = timings(
+            lambda: wg.gather_windows(pimg, ys, xs, win),
+            lambda: wg.gather_windows_plain(pimg, ys, xs, win),
+            4 * (covered + out_k.numel() + 2 * ys.numel()), 0,
         )
-        print(
-            f"gather_windows K=512 win={win}: bitwise equal; kernel {gather[win][1]:.4f} ms, "
-            f"plain {gather[win][2]:.4f} ms [{card}]"
-        )
+        gather[win]["max_abs_err"] = float((out_k - out_p).abs().max())
+        print(f"gather_windows K=512 win={win}: bitwise equal; {describe(gather[win])} [{card}]")
     return [
         {
             "name": "harris_nms", "route": "cuda",
             "source": "ptzjax_torch/csrc/harris_nms.cu",
             "replaces": "ptzjax/kernels/detect_pallas.py:106",
-            "max_abs_err": harris_err, "ms": harris_ms, "plain_ms": harris_plain_ms,
+            "max_abs_err": harris_err, **harris,
         },
         {
             "name": "gather_windows", "route": "cuda",
             "source": "ptzjax_torch/csrc/gather_windows.cu",
             "replaces": "ptzjax/kernels/window_pallas.py:67",
-            "max_abs_err": max(v[0] for v in gather.values()),
-            "ms": gather[SCALED_WIN][1], "plain_ms": gather[SCALED_WIN][2],
+            **gather[SCALED_WIN],
+            "max_abs_err": max(v["max_abs_err"] for v in gather.values()),
+            "ms_by_shape": {f"win={k}": v for k, v in gather.items()},
         },
     ]
 
@@ -173,6 +287,9 @@ def _unit(x: np.ndarray) -> np.ndarray:
     return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
 
 
+REPEAT_SHAPES = ("512x256 gated 60px", "512x32768 one-way")
+
+
 def matcher_phase(dev, card: str) -> dict:
     """Kernel C against its plain version at the path's four shapes, on unit
     random descriptors with planted correspondences, exact duplicate
@@ -183,6 +300,7 @@ def matcher_phase(dev, card: str) -> dict:
     from ptzjax_torch.kernels import match as km
 
     rng = np.random.default_rng(1)
+    d_dim = 128
     shapes = (   # (name, Q, R, gated, mutual, ratio of the call site)
         ("512x256 gated 60px", 512, 256, True, True, 0.95),
         ("512x2048", 512, 2048, False, True, 0.8),
@@ -233,32 +351,50 @@ def matcher_phase(dev, card: str) -> dict:
         )
         err = max(float((v1 - p_v1).abs().max()), float((v2 - p_v2).abs().max()))
         errs.append(err)
-        ms = time_ms(lambda: km.match_scores(*args, mutual=mutual))
-        plain_ms = time_ms(lambda: km.match_scores_plain(*args, mutual=mutual))
-        by_shape[name] = {"ms": ms, "plain_ms": plain_ms}
+        repeat = ""
+        if name in REPEAT_SHAPES:
+            # the ticket counters reset themselves: later calls are bitwise
+            # the same
+            for _ in range(2):
+                again = km.match_scores(*args, mutual=mutual)
+                check(
+                    all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, again)),
+                    f"matcher {name}: a repeated call differs",
+                )
+            repeat = "three calls bitwise equal; "
+        # 2 Q R D flops; the descriptors, validity (and positions) read once,
+        # the per-row (and per-column) results written once
+        nbytes = (
+            4 * (q + r) * d_dim + (q + r) + (8 * (q + r) if gated else 0)
+            + 12 * q + (4 * r if mutual else 0)
+        )
+        by_shape[name] = timings(
+            lambda: km.match_scores(*args, mutual=mutual),
+            lambda: km.match_scores_plain(*args, mutual=mutual),
+            nbytes, 2 * q * r * d_dim,
+        )
         print(
             f"match_scores {name}: rows within the 1e-6 margin {n_rows_near}, columns "
             f"{n_cols_near}; ok {int(res_k.ok.sum())}/{q}; v1/v2 max_abs_err {err} (atol 1e-5); "
-            f"i1, col_best, ok, idx equal outside the margin; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms [{card}]"
+            f"i1, col_best, ok, idx equal outside the margin; {repeat}{describe(by_shape[name])} [{card}]"
         )
-    track = by_shape[shapes[0][0]]
     return {
         "name": "match_scores", "route": "cuda", "source": "ptzjax_torch/csrc/match.cu",
-        "replaces": "ptzjax/kernels/match.py:88", "max_abs_err": max(errs),
-        "ms": track["ms"], "plain_ms": track["plain_ms"], "ms_by_shape": by_shape,
+        "replaces": "ptzjax/kernels/match.py:88", **by_shape[shapes[0][0]],
+        "max_abs_err": max(errs), "ms_by_shape": by_shape,
     }
 
 
 def cholesky_phase(dev, card: str) -> dict:
     """Kernel D against ``torch.linalg.cholesky_ex`` on SPD matrices scaled
     like the EKF's innovation matrix (eigenvalues from sigma_obs^2 = 1 to
-    1e3 px^2), at n = 512 (the default caps) and 256 (128 rays)."""
+    1e3 px^2), at n = 512 (the default caps) and 256 (128 rays), whose rows
+    stay in the cluster's shared memory, and 1,024, whose rows do not."""
     from ptzjax_torch.kernels import cholesky as kc
 
     rng = np.random.default_rng(2)
     errs, times = [], {}
-    for n in (512, 256):
+    for n in (512, 256, 1024):
         u, _ = np.linalg.qr(rng.normal(size=(n, n)))
         lam = np.exp(rng.uniform(0.0, np.log(1e3), n))
         s = torch.from_numpy(((u * lam) @ u.T).astype(np.float32)).to(dev)
@@ -278,20 +414,29 @@ def cholesky_phase(dev, card: str) -> dict:
         bad[n // 3, n // 3] = -1.0
         _, info_k = kc.cholesky(bad)
         _, info_b = kc.cholesky_plain(bad)
-        check(int(info_k) > 0 and int(info_b) > 0, f"cholesky n={n}: non-PD info {int(info_k)}, plain {int(info_b)}")
+        check(
+            int(info_k) == int(info_b) > 0,
+            f"cholesky n={n}: non-PD info {int(info_k)}, plain {int(info_b)}",
+        )
         err = float((lk - lp).abs().max())
         errs.append(err)
-        times[n] = (time_ms(lambda: kc.cholesky(s)), time_ms(lambda: kc.cholesky_plain(s)))
+        # n^3 / 3 flops; the lower triangle read once, L written once; the
+        # plain version is the library call (cuSOLVER through cholesky_ex)
+        times[n] = timings(
+            lambda: kc.cholesky(s), lambda: kc.cholesky_plain(s),
+            4 * (n * (n + 1) // 2 + n * n) + 4, n**3 / 3,
+            library=lambda: torch.linalg.cholesky_ex(s),
+        )
         print(
-            f"cholesky n={n}: reconstruction {rec} (< 1e-5), L max_abs_err {err} vs cuSOLVER "
-            f"(max|L| {scale}, tolerance 1e-4 of it), non-PD info {int(info_k)} (plain "
-            f"{int(info_b)}); kernel {times[n][0]:.4f} ms, plain {times[n][1]:.4f} ms [{card}]"
+            f"cholesky n={n} ({'shared' if kc.plan(n).smem else 'global'}-memory rows): "
+            f"reconstruction {rec} (< 1e-5), L max_abs_err {err} vs cuSOLVER (max|L| {scale}, "
+            f"tolerance 1e-4 of it), non-PD info {int(info_k)} (plain {int(info_b)}); "
+            f"{describe(times[n])} [{card}]"
         )
     return {
         "name": "cholesky", "route": "cuda", "source": "ptzjax_torch/csrc/cholesky.cu",
-        "replaces": "ptzjax/kernels/cholesky_pallas.py:139", "max_abs_err": max(errs),
-        "ms": times[512][0], "plain_ms": times[512][1],
-        "ms_by_shape": {f"n={n}": {"ms": a, "plain_ms": b} for n, (a, b) in times.items()},
+        "replaces": "ptzjax/kernels/cholesky_pallas.py:139", **times[512],
+        "max_abs_err": max(errs), "ms_by_shape": {f"n={n}": t for n, t in times.items()},
     }
 
 
@@ -370,6 +515,69 @@ def blackout_phase(imgs: torch.Tensor, cams, intr, mode: str, card: str) -> dict
         f"{frames / wall:.2f} frames/s [{card}]"
     )
     return counts
+
+
+def frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
+    """4d: device time and wall time per frame kind, over 40 tracked frames
+    (40-79) and the relocalization frames (141-147) of the 4c sequence, in
+    each reloc mode. Frames in a window run one per call with a sync after
+    each; one pass times their wall clock, a second pass runs the profiler
+    over them (its per-launch cost would swell a wall time)."""
+    from ptzjax_torch.config import SLAMConfig
+    from ptzjax_torch.frontend import extract_features
+    from ptzjax_torch.slam import PTZSlam
+
+    dark = imgs.clone()
+    dark[BLACKOUT.start:BLACKOUT.stop] = 0.0
+    # (kind, frames, event): no frame of either window inserts a keyframe
+    windows = (
+        ("tracked", range(40, 80), 0),
+        ("reloc", range(BLACKOUT.start + 1, BLACKOUT.stop + 1), 1),
+    )
+
+    def run(mode: str, traced: bool) -> dict:
+        slam = PTZSlam(SLAMConfig(reloc_mode=mode), intr)
+        state = slam.init(*extract_features(dark[0], slam.cfg), cams[0])
+        at, out = 1, {}
+        for kind, frames, event in windows:
+            state, _ = slam.run_segment_pixels(state, dark[at:frames.start])
+            torch.cuda.synchronize()
+            at = frames.stop
+            walls, events = [], []
+            with profiled() if traced else contextlib.nullcontext() as prof:
+                for f in frames:
+                    t0 = time.perf_counter()
+                    state, info = slam.run_segment_pixels(state, dark[f:f + 1])
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    events.append(int(info.event[0]) + 2 * int(info.keyframe[0]))
+            check(all(e == event for e in events), f"4d {mode}: frames {frames} ran events {events}")
+            if not traced:
+                out[kind] = float(np.median(walls)) * 1e3
+                continue
+            kernels = device_kernels(prof)
+            check(kernels, "the profiler recorded no device time")
+            by_name: dict = {}
+            for e in kernels:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            out[kind] = (
+                sum(by_name.values()) / len(frames) / 1e3, len(kernels) / len(frames),
+                sorted(by_name.items(), key=lambda kv: -kv[1])[:4],
+            )
+        return out
+
+    for mode in ("map", "keyframe"):
+        walls, traced = run(mode, False), run(mode, True)
+        for kind, frames, _ in windows:
+            device_ms, per_frame, top = traced[kind]
+            nf = len(frames)
+            print(
+                f"4d {kind} frames {frames.start}-{frames.stop - 1} (no keyframe insert), "
+                f"reloc_mode={mode}: wall median {walls[kind]:.3f} ms, device {device_ms:.4f} ms a "
+                f"frame ({per_frame:.1f} kernels, busy {100 * device_ms / walls[kind]:.1f}%); largest: "
+                + "; ".join(f"{name[:60]} {us / nf / 1e3:.4f} ms" for name, us in top)
+                + f" [{card}]"
+            )
 
 
 def main() -> int:
@@ -458,6 +666,9 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
+
+    # 4d. device time per frame kind (after the counted runs)
+    frame_phase(imgs, cams, intr, card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -1,5 +1,5 @@
 // Cholesky factor of one symmetric positive definite fp32 matrix for Hopper
-// (sm_90a): L with S = L L^T, in one launch of one CTA.
+// (sm_90a): L with S = L L^T, in one launch of one thread-block cluster.
 //
 // Replaces the TPU kernel ptzjax/kernels/cholesky_pallas.py:cholesky_pallas
 // (its _chol_kernel and _factor_diag_unrolled). It reads only the lower
@@ -11,232 +11,385 @@
 // the factorization stops, and the EKF turns the factor into NaN from
 // `info`, so the frame becomes a no-op flagged LOST, as on the plain path.
 //
-// What bounds it on the card: n^3/3 flops (45 MFLOP at the EKF's n = 512)
-// on one SM, behind a chain of n dependent pivots with a CTA barrier around
-// each of the n/32 panels. The algorithm is right-looking over 32-wide
-// panels:
-//   1. one warp factors the 32 x 32 diagonal block, a row per lane in
-//      registers, with column t of L passed between lanes by shuffles;
-//   2. every thread solves one row of the panel below it by forward
-//      substitution against that block (kept in shared memory), on rows
-//      staged in shared memory so that global memory is read and written a
-//      whole row at a time;
-//   3. the panel is staged in shared memory and the trailing lower triangle
-//      is updated in global memory (1 MiB at n = 512, resident in L2): a
-//      warp holds two panel rows in registers and its lanes walk the
-//      columns, four at a time, reading each column's panel row with float4
-//      loads. Two rows (64 registers) keep the kernel within 128 registers
-//      a thread at 512 threads, with a few bytes of spills (four rows, as
-//      4 x 4 tiles, spilled more and ran slower); four columns per lane keep eight read-modify-writes in
-//      flight. Shared-memory bandwidth bounds this step: each 128-byte
-//      panel row read serves only two rows.
-// The TPU kernel inverted the diagonal block with a Neumann product only
-// because its matrix unit prefers products to substitution; that is gone.
-// It is one launch where cuSOLVER's potrf makes several.
+// What bounds it on the card: not the n^3/3 flops (45 MFLOP at the EKF's
+// n = 512, 0.67 us at the fp32 peak) but latency: n/32 panel steps, each a
+// chain of 32 dependent pivots and two cluster barriers with a round trip
+// through distributed shared memory after each. The first design ran on one
+// CTA with the trailing matrix in L2 and took 0.56 ms at n = 512, 3.2x
+// cuSOLVER's cholesky_ex. This one spreads the factor over a cluster of 8
+// CTAs on neighbouring SMs:
+//   - the 32-row block rows are dealt to the CTAs cyclically, reflected every
+//     other round (0..7, then 7..0, ...): with plain b mod 8 the CTA that
+//     holds block rows 7 and 15 does 148 of the 680 tile updates at n = 512;
+//     reflected, the most any CTA does is 120 (block row 15 alone);
+//   - each CTA keeps its block rows in shared memory, and a copy of the
+//     current panel column (n x 32), at n <= 512: 203 KB of the 227 KB;
+//   - step k: barrier; every CTA copies the factored 32 x 32 diagonal block
+//     (with its reciprocal diagonal and a failure flag) from its owner's
+//     shared memory, and solves its own block rows below k against it, a
+//     row per thread; barrier; every CTA copies the other CTAs' solved panel
+//     rows into its panel copy and updates its own trailing rows from it,
+//     64 threads per 32 x 32 tile, each a 4 x 4 register tile fed by float4
+//     reads (one per 8 FMAs). Copies are pulled by all threads after a
+//     barrier: pushing them from the threads that produce them was no
+//     faster, nor was factoring the next block between the arrive and the
+//     wait of the second barrier;
+//   - look-ahead: in the owner of block row k + 1, two warps update that
+//     row's diagonal tile first and one of them factors the block for step
+//     k + 1 while the other warps finish the update. The factor holds a row
+//     per lane in registers, passes column t by shuffles and computes the
+//     next pivot ahead on its own lane, so the chain is a shuffle, an rsqrt,
+//     a multiply and an FMA per pivot;
+//   - where the rows and panel do not fit (n > 512), the same kernel keeps
+//     the rows in the output L and one panel copy in a global workspace
+//     (read past L1), chosen by the host (kernels/cholesky.py:plan).
+// On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 3d, device
+// time; PERF.md has the runs): about 0.16 ms at n = 512 against
+// cholesky_ex's 0.17 ms, 0.065 against 0.08 ms at n = 256, and 1.5 against
+// 0.35 ms at n = 1,024 (global branch): about 10 us a panel step at
+// n = 512, where the flops alone would take under 1 us on 8 SMs.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int P = 32;            // panel width
+constexpr int P = 32;                  // panel width = block-row height
+constexpr int CLUSTER = 8;             // CTAs in the cluster (the portable size)
 constexpr int THREADS = 512;
-constexpr int NWARPS = THREADS / 32;
-constexpr int LD = 36;           // staged row stride: 16-byte rows, no bank conflicts
-constexpr int SLOT_ROWS = 768;   // rows of the trailing matrix staged at once
+constexpr int GROUPS = THREADS / 64;   // trailing-update groups, one tile each
+constexpr int LDP_SMEM = 36;           // panel copy row stride: 16-byte rows, no bank conflicts
+constexpr int LDP_GLOBAL = 32;
+constexpr int NO_CLUSTER = 1000;       // returned when the cluster cannot be resident
 
-__device__ void stage_panel(float* dst, const float* l, int n, int c0, int r0,
-                            int r1) {
-  for (int e = threadIdx.x; e < (r1 - r0) * P; e += THREADS) {
-    const int rr = e / P, t = e % P;
-    dst[rr * LD + t] = l[(size_t)(r0 + rr) * n + c0 + t];
+// Block row b lives on CTA owner_of(b), in slot b / CLUSTER of that CTA:
+// dealt cyclically, reflected every other round (kernels/cholesky.py:plan).
+__device__ __forceinline__ int block_of(int cta, int slot) {
+  return slot * CLUSTER + (slot % 2 == 0 ? cta : CLUSTER - 1 - cta);
+}
+__device__ __forceinline__ int owner_of(int b) {
+  const int slot = b / CLUSTER, pos = b % CLUSTER;
+  return slot % 2 == 0 ? pos : CLUSTER - 1 - pos;
+}
+
+// Row stride of the owned rows in shared memory: == 8 (mod 32), so the
+// 4 rows x 8 columns a warp touches in the update fall in 32 distinct banks.
+__host__ __device__ __forceinline__ int smem_lda(int nb) { return nb * P + 8; }
+
+size_t smem_bytes(int n) {
+  const int nb = (n + P - 1) / P, slots = (nb + CLUSTER - 1) / CLUSTER;
+  return sizeof(float) * ((size_t)slots * P * smem_lda(nb) + (size_t)nb * P * LDP_SMEM);
+}
+
+template <bool SMEM>
+__device__ __forceinline__ float* row_ptr(float* srows, float* l, int lda, int n,
+                                          int slot, int b, int rr) {
+  return SMEM ? srows + (size_t)(slot * P + rr) * lda : l + (size_t)(b * P + rr) * n;
+}
+
+template <bool SMEM>
+__device__ __forceinline__ float4 ld_panel(const float* p) {
+  // in the global branch other SMs wrote the panel: read it past L1
+  return SMEM ? *reinterpret_cast<const float4*>(p) : __ldcg(reinterpret_cast<const float4*>(p));
+}
+
+// One warp factors the w x w diagonal block whose row `lane` starts at dr
+// (column c0 of the matrix): lane i holds row i in registers, column t of L
+// reaches the lanes by shuffles, and lane t + 1 computes the next pivot
+// ahead of the rest of the column, so the chain is one shuffle, one rsqrt,
+// a multiply and an FMA per pivot. Rows past w are the identity, so the
+// loop has no branch; after a bad pivot it runs on (the caller discards
+// the block by the flag). Writes the factor into the rows, the block
+// transposed (dt[t * P + u] = L[u][t]) with its reciprocal diagonal at
+// dt[P * P + t], and the flag (0, or the 1-based index of the first pivot
+// that is not positive) into *flag.
+__device__ __forceinline__ void factor_diag(float* dr, int w, int c0, float* dt, int* flag,
+                                            int lane) {
+  float a[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) a[j] = lane < w ? (j <= lane ? dr[j] : 0.f) : (j == lane ? 1.f : 0.f);
+  int bad = 0;
+  float rs_lane = 0.f;
+  float dnext = a[0];
+#pragma unroll
+  for (int t = 0; t < P; ++t) {
+    const float piv = __shfl_sync(0xffffffffu, dnext, t);
+    if (bad == 0 && !(piv > 0.f)) bad = c0 + t + 1;   // uniform: one pivot for all lanes
+    const float rs = rsqrtf(piv);
+    const float lt = lane == t ? piv * rs : (lane > t ? a[t] * rs : a[t]);
+    a[t] = lt;
+    if (lane == t) rs_lane = rs;
+    if (t + 1 < P) dnext = __fmaf_rn(-lt, lt, a[t + 1]);
+    // above the diagonal (lane < j) this writes values nobody reads
+#pragma unroll
+    for (int j = t + 1; j < P; ++j) a[j] = __fmaf_rn(-lt, __shfl_sync(0xffffffffu, lt, j), a[j]);
+  }
+  if (lane < w) {
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      if (j <= lane) dr[j] = a[j];
+  }
+#pragma unroll
+  for (int t = 0; t < P; ++t) dt[t * P + lane] = a[t];
+  dt[P * P + lane] = rs_lane;
+  if (lane == 0) *flag = bad;
+}
+
+// A[i][j] -= sum_t L[i][c0+t] L[j][c0+t] for the 32 x 32 tile (block row b,
+// block column bj); 64 threads, each rows rq + 8 ii and columns cq + 8 jj.
+template <bool SMEM>
+__device__ __forceinline__ void update_tile(float* srows, float* l, const float* panel,
+                                            int lda, int ldp, int n, int slot, int b,
+                                            int bj, int rq, int cq) {
+  float acc[4][4];
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = 0.f;
+  const float* pr = panel + (size_t)(b * P + rq) * ldp;
+  const float* pc = panel + (size_t)(bj * P + cq) * ldp;
+#pragma unroll
+  for (int t = 0; t < P; t += 4) {
+    float4 rv[4], cv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      rv[e] = ld_panel<SMEM>(pr + (size_t)8 * e * ldp + t);
+      cv[e] = ld_panel<SMEM>(pc + (size_t)8 * e * ldp + t);
+    }
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        acc[ii][jj] = __fmaf_rn(rv[ii].x, cv[jj].x, acc[ii][jj]);
+        acc[ii][jj] = __fmaf_rn(rv[ii].y, cv[jj].y, acc[ii][jj]);
+        acc[ii][jj] = __fmaf_rn(rv[ii].z, cv[jj].z, acc[ii][jj]);
+        acc[ii][jj] = __fmaf_rn(rv[ii].w, cv[jj].w, acc[ii][jj]);
+      }
+  }
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    const int rr = rq + 8 * ii, i = b * P + rr;
+    if (i >= n) continue;
+    float* row = row_ptr<SMEM>(srows, l, lda, n, slot, b, rr);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = bj * P + cq + 8 * jj;
+      if (j < n && j <= i) row[j] = __fsub_rn(row[j], acc[ii][jj]);
+    }
   }
 }
 
+template <bool SMEM>
 __global__ void __launch_bounds__(THREADS, 1)
-    cholesky_kernel(const float* __restrict__ s, float* __restrict__ l,
-                    int* __restrict__ info, int n, int slot_rows,
-                    int stage_rows) {
+    cholesky_cluster(const float* __restrict__ s, float* __restrict__ l,
+                     int* __restrict__ info, float* __restrict__ gpanel, int n) {
+  cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
-  float* const stage = reinterpret_cast<float*>(smem4);
-  __shared__ float dblk[P][P + 1];
-  __shared__ int fail;
+  // dt: the diagonal block this CTA factored last (others copy it from
+  // here); dk: the copy of step k's block that the solve reads
+  __shared__ __align__(16) float dt[P * P + P];
+  __shared__ __align__(16) float dk[P * P + P];
+  __shared__ int flag, flag_k;
 
+  const int cta = (int)cluster.block_rank();
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  // working copy: the lower triangle of S, zeros above the diagonal
-  for (int i = warp; i < n; i += NWARPS)
-    for (int j = lane; j < n; j += 32)
-      l[(size_t)i * n + j] = j <= i ? s[(size_t)i * n + j] : 0.f;
-  if (tid == 0) fail = 0;
+  const int nb = (n + P - 1) / P;
+  const int slots = (nb + CLUSTER - 1) / CLUSTER;
+  const int lda = SMEM ? smem_lda(nb) : n;
+  const int ldp = SMEM ? LDP_SMEM : LDP_GLOBAL;
+  float* const srows = reinterpret_cast<float*>(smem4);
+  float* const panel = SMEM ? srows + (size_t)slots * P * lda : gpanel;
+
+  // own rows: the lower triangle of S, zeros above the diagonal
+  for (int slot = 0; slot < slots; ++slot) {
+    const int b = block_of(cta, slot);
+    if (b >= nb) break;
+    for (int e = tid; e < P * n; e += THREADS) {
+      const int rr = e / n, j = e - rr * n, i = b * P + rr;
+      if (i < n) row_ptr<SMEM>(srows, l, lda, n, slot, b, rr)[j] = j <= i ? s[(size_t)i * n + j] : 0.f;
+    }
+  }
   __syncthreads();
+  if (cta == 0 && warp == 0)   // CTA 0 owns block row 0
+    factor_diag(row_ptr<SMEM>(srows, l, lda, n, 0, 0, lane), min(P, n), 0, dt, &flag, lane);
 
-  for (int c0 = 0; c0 < n; c0 += P) {
-    const int w = min(P, n - c0);
-
-    // 1. diagonal block, one warp; lane i holds row i of the block in
-    //    registers, and column t of L goes to the lanes by shuffles
-    if (warp == 0) {
-      float a[P];
-#pragma unroll
-      for (int j = 0; j < P; ++j)
-        a[j] = lane < w && j <= lane ? l[(size_t)(c0 + lane) * n + c0 + j] : 0.f;
-      int bad = 0;
-#pragma unroll
-      for (int t = 0; t < P; ++t) {
-        if (t >= w) break;
-        const float piv = __shfl_sync(0xffffffffu, a[t], t);
-        if (!(piv > 0.f)) {   // uniform: every lane holds the same pivot
-          bad = c0 + t + 1;
-          break;
-        }
-        const float dg = sqrtf(piv);
-        const float lt = lane == t ? dg : (lane > t ? a[t] / dg : a[t]);
-        a[t] = lt;
-#pragma unroll
-        for (int j = t + 1; j < P; ++j) {
-          const float ljt = __shfl_sync(0xffffffffu, lt, j);
-          if (lane >= j) a[j] = __fmaf_rn(-lt, ljt, a[j]);
-        }
-      }
-      if (lane == 0) fail = bad;
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        dblk[lane][j] = a[j];
-        if (lane < w && j <= lane) l[(size_t)(c0 + lane) * n + c0 + j] = a[j];
-      }
+  for (int k = 0;; ++k) {
+    const int c0 = k * P;
+    // A: step k's diagonal block is factored (and every CTA runs)
+    cluster.sync();
+    {
+      const int own = owner_of(k);
+      const float4* src = reinterpret_cast<const float4*>(cluster.map_shared_rank(dt, own));
+      for (int e = tid; e < (P * P + P) / 4; e += THREADS) reinterpret_cast<float4*>(dk)[e] = src[e];
+      if (tid == 0) flag_k = *cluster.map_shared_rank(&flag, own);
     }
     __syncthreads();
-    if (fail) {
-      if (tid == 0) *info = fail;
+    if (flag_k) {
+      cluster.sync();   // no CTA leaves while another may still read its block
+      if (cta == 0 && tid == 0) *info = flag_k;
       return;
     }
-    const int m0 = c0 + P;   // first trailing row; only the last panel has w < P
-    if (m0 >= n) break;
+    if (c0 + P >= n) break;
 
-    // 2. panel below the block: x L_jj^T = a, one row per thread, column by
-    //    column (x_t final, then removed from the later columns). Rows are
-    //    staged in shared memory so that global memory is read and written
-    //    a whole row at a time.
-    for (int rs = m0; rs < n; rs += stage_rows) {
-      const int re = min(n, rs + stage_rows);
-      stage_panel(stage, l, n, c0, rs, re);
-      __syncthreads();
-      for (int i = rs + tid; i < re; i += THREADS) {
-        float4* rv = reinterpret_cast<float4*>(stage + (size_t)(i - rs) * LD);
-        // an opaque copy of the block's address: without it the compiler
-        // hoists all 528 block reads out of this loop and spills them
-        const float* db = &dblk[0][0];
-        asm volatile("" : "+l"(db));
-        float x[P];
+    // solve the own block rows below k, X L_kk^T = A, a row per thread, into
+    // the own rows and the own rows of the panel copy
+    int slot_lo = 0;
+    while (slot_lo < slots && block_of(cta, slot_lo) <= k) ++slot_lo;
+    for (int e = tid; e < (slots - slot_lo) * P; e += THREADS) {
+      const int slot = slot_lo + e / P, rr = e % P, b = block_of(cta, slot), i = b * P + rr;
+      if (b >= nb || i >= n) continue;
+      float* row = row_ptr<SMEM>(srows, l, lda, n, slot, b, rr) + c0;
+      // an opaque copy of the block's address: without it the compiler
+      // hoists all the block's reads ahead of the solve and spills them
+      const float* db = dk;
+      asm volatile("" : "+l"(db));
+      float x[P];
 #pragma unroll
-        for (int q = 0; q < P / 4; ++q) {
-          const float4 v = rv[q];
-          x[4 * q] = v.x;
-          x[4 * q + 1] = v.y;
-          x[4 * q + 2] = v.z;
-          x[4 * q + 3] = v.w;
+      for (int t = 0; t < P; ++t) x[t] = row[t];
+#pragma unroll
+      for (int t = 0; t < P; ++t) {
+        x[t] = x[t] * db[P * P + t];
+#pragma unroll
+        for (int q = (t + 1) / 4; q < P / 4; ++q) {
+          const float4 v = reinterpret_cast<const float4*>(db + t * P)[q];
+          const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int e4 = 0; e4 < 4; ++e4)
+            if (4 * q + e4 > t) x[4 * q + e4] = __fmaf_rn(-x[t], vv[e4], x[4 * q + e4]);
         }
-#pragma unroll
-        for (int t = 0; t < P; ++t) {
-          x[t] = x[t] / db[t * (P + 1) + t];
-#pragma unroll
-          for (int u = t + 1; u < P; ++u) x[u] = __fmaf_rn(-x[t], db[u * (P + 1) + t], x[u]);
-        }
-#pragma unroll
-        for (int q = 0; q < P / 4; ++q)
-          rv[q] = make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
       }
-      __syncthreads();
-      for (int e = tid; e < (re - rs) * P; e += THREADS) {
-        const int rr = e / P, t = e % P;
-        l[(size_t)(rs + rr) * n + c0 + t] = stage[rr * LD + t];
+      float4* pr = reinterpret_cast<float4*>(panel + (size_t)i * ldp);
+#pragma unroll
+      for (int q = 0; q < P / 4; ++q) {
+        row[4 * q] = x[4 * q];
+        row[4 * q + 1] = x[4 * q + 1];
+        row[4 * q + 2] = x[4 * q + 2];
+        row[4 * q + 3] = x[4 * q + 3];
+        pr[q] = make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+      }
+    }
+    if (!SMEM) __threadfence();
+    // B: every CTA's part of the panel is solved
+    cluster.sync();
+    if (SMEM) {
+      // copy the other CTAs' panel rows below k into the own panel copy
+      const int r0 = (k + 1) * P;
+      for (int e = tid; e < (nb * P - r0) * (P / 4); e += THREADS) {
+        const int i = r0 + e / (P / 4), q = e % (P / 4), o = owner_of(i / P);
+        if (o == cta) continue;
+        reinterpret_cast<float4*>(panel + (size_t)i * ldp)[q] =
+            reinterpret_cast<const float4*>(cluster.map_shared_rank(panel, o) + (size_t)i * ldp)[q];
       }
       __syncthreads();
     }
 
-    // 3. trailing update A[i][j] -= sum_t L[i][c0+t] L[j][c0+t], j <= i,
-    //    over pairs of staged row ranges (one pair when n <= slot_rows)
-    for (int ib = m0; ib < n; ib += slot_rows) {
-      const int ie = min(n, ib + slot_rows);
-      for (int jb = m0; jb <= ib; jb += slot_rows) {
-        const int je = min(n, jb + slot_rows);
-        const float* pi = stage;
-        const float* pj = jb == ib ? stage : stage + (size_t)slot_rows * LD;
-        stage_panel(stage, l, n, c0, ib, ie);
-        if (jb != ib) stage_panel(stage + (size_t)slot_rows * LD, l, n, c0, jb, je);
-        __syncthreads();
-        // a warp owns 2 consecutive rows, held in registers (row g + 1 past
-        // ie reads a stale staged row that is never stored)
-        for (int g = ib + 2 * warp; g < ie; g += 2 * NWARPS) {
-          float4 r0[P / 4], r1[P / 4];
-          const float4* p0 = reinterpret_cast<const float4*>(pi + (size_t)(g - ib) * LD);
-          const float4* p1 = reinterpret_cast<const float4*>(pi + (size_t)(g - ib + 1) * LD);
-#pragma unroll
-          for (int q = 0; q < P / 4; ++q) {
-            r0[q] = p0[q];
-            r1[q] = p1[q];
-          }
-          // each lane takes 4 columns, 32 apart; past jend it re-reads the
-          // last staged column and stores nothing
-          const int jend = min(je, g + 2);
-          for (int j0 = jb + lane; j0 < jend; j0 += 4 * 32) {
-            float acc0[4], acc1[4], c0v[4], c1v[4];
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const int j = j0 + 32 * k;
-              c0v[k] = j < jend && j <= g ? l[(size_t)g * n + j] : 0.f;
-              c1v[k] = j < jend && g + 1 < ie ? l[(size_t)(g + 1) * n + j] : 0.f;
-              acc0[k] = 0.f;
-              acc1[k] = 0.f;
-            }
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const int j = min(j0 + 32 * k, jend - 1);
-              const float4* pr = reinterpret_cast<const float4*>(pj + (size_t)(j - jb) * LD);
-#pragma unroll
-              for (int q = 0; q < P / 4; ++q) {
-                const float4 b = pr[q];
-                acc0[k] = __fmaf_rn(r0[q].x, b.x, acc0[k]);
-                acc0[k] = __fmaf_rn(r0[q].y, b.y, acc0[k]);
-                acc0[k] = __fmaf_rn(r0[q].z, b.z, acc0[k]);
-                acc0[k] = __fmaf_rn(r0[q].w, b.w, acc0[k]);
-                acc1[k] = __fmaf_rn(r1[q].x, b.x, acc1[k]);
-                acc1[k] = __fmaf_rn(r1[q].y, b.y, acc1[k]);
-                acc1[k] = __fmaf_rn(r1[q].z, b.z, acc1[k]);
-                acc1[k] = __fmaf_rn(r1[q].w, b.w, acc1[k]);
-              }
-            }
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const int j = j0 + 32 * k;
-              if (j < jend && j <= g) l[(size_t)g * n + j] = __fsub_rn(c0v[k], acc0[k]);
-              if (j < jend && j <= g + 1 && g + 1 < ie)
-                l[(size_t)(g + 1) * n + j] = __fsub_rn(c1v[k], acc1[k]);
-            }
-          }
+    // trailing update of the own rows. Look-ahead: in the owner of block
+    // row k + 1, group 0 updates that row's diagonal tile (its only tile)
+    // and its warp 0 factors the block for step k + 1 while the other
+    // groups update the rest; elsewhere tile u of the CTA's list (block row
+    // by block row, columns k+1..b) goes to group u mod GROUPS.
+    {
+      const int kn = k + 1;
+      const bool ahead = owner_of(kn) == cta;
+      const int g = tid >> 6, l64 = tid & 63, rq = l64 >> 3, cq = l64 & 7;
+      if (ahead && g == 0) {
+        const int slot = kn / CLUSTER;
+        update_tile<SMEM>(srows, l, panel, lda, ldp, n, slot, kn, kn, rq, cq);
+        asm volatile("bar.sync 1, 64;" ::: "memory");
+        if (warp == 0)
+          factor_diag(row_ptr<SMEM>(srows, l, lda, n, slot, kn, lane) + kn * P,
+                      min(P, n - kn * P), kn * P, dt, &flag, lane);
+      } else {
+        const int groups = ahead ? GROUPS - 1 : GROUPS;
+        int u = ahead ? g - 1 : g;
+        for (int slot = slot_lo; slot < slots; ++slot) {
+          const int b = block_of(cta, slot);
+          if (b >= nb) break;
+          if (b == kn && ahead) continue;
+          const int cnt = b - k;
+          for (; u < cnt; u += groups)
+            update_tile<SMEM>(srows, l, panel, lda, ldp, n, slot, b, k + 1 + u, rq, cq);
+          u -= cnt;
         }
-        __syncthreads();
       }
     }
   }
-  if (tid == 0) *info = 0;
+  cluster.sync();   // no CTA leaves while another may still read its block
+
+  if (SMEM) {
+    for (int slot = 0; slot < slots; ++slot) {
+      const int b = block_of(cta, slot);
+      if (b >= nb) break;
+      for (int e = tid; e < P * n; e += THREADS) {
+        const int rr = e / n, j = e - rr * n, i = b * P + rr;
+        if (i < n) l[(size_t)i * n + j] = j <= i ? row_ptr<SMEM>(srows, l, lda, n, slot, b, rr)[j] : 0.f;
+      }
+    }
+  }
+  if (cta == 0 && tid == 0) *info = 0;
+}
+
+template <bool SMEM>
+int launch(const float* s, float* l, int* info, float* work, int n, int device,
+           cudaStream_t stream) {
+  const auto kernel = cholesky_cluster<SMEM>;
+  const size_t smem = SMEM ? smem_bytes(n) : 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CLUSTER);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // whether one cluster of this size fits, asked once per device and size
+  static int known_device = -1;
+  static size_t known_smem[2] = {~(size_t)0, ~(size_t)0};
+  if (known_device != device) {
+    known_device = device;
+    known_smem[0] = known_smem[1] = ~(size_t)0;
+  }
+  if (known_smem[SMEM] != smem) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters < 1) return NO_CLUSTER;
+    known_smem[SMEM] = smem;
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, s, l, info, work, n);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int ptz_cholesky(const void* s, void* l, void* info, int n,
-                            int device, void* stream) {
+// use_smem: the owned rows and the panel copy in shared memory (the caller
+// checked that cholesky_smem_bytes(n) fits); otherwise `work` holds
+// ceil(n / 32) * 32 * 32 floats for the panel and the rows live in `l`.
+extern "C" int ptz_cholesky(const void* s, void* l, void* info, void* work, int n,
+                            int use_smem, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  // a multiple of 4 rows, so a warp's 4-row strip stays inside its slot
-  const int slot_rows = min(SLOT_ROWS, (n + 3) / 4 * 4);
-  const int slots = n > slot_rows ? 2 : 1;
-  const size_t smem = (size_t)slots * slot_rows * LD * sizeof(float);
-  err = cudaFuncSetAttribute(cholesky_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cholesky_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)s, (float*)l, (int*)info, n, slot_rows, slots * slot_rows);
-  return (int)cudaGetLastError();
+  if (n <= 0 || (!use_smem && work == nullptr)) return (int)cudaErrorInvalidValue;
+  return use_smem ? launch<true>((const float*)s, (float*)l, (int*)info, nullptr, n, device,
+                                 (cudaStream_t)stream)
+                  : launch<false>((const float*)s, (float*)l, (int*)info, (float*)work, n,
+                                  device, (cudaStream_t)stream);
+}
+
+// Shared memory a block of `device` may opt in to (0 on error): the host's
+// plan decides from it whether the rows fit (kernels/cholesky.py:plan).
+extern "C" int ptz_smem_optin(int device) {
+  int bytes = 0;
+  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess)
+    return 0;
+  return bytes;
 }

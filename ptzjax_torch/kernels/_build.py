@@ -102,10 +102,12 @@ def load() -> ctypes.CDLL:
         lib.ptz_harris_nms.restype = ci
         lib.ptz_gather_windows.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.ptz_gather_windows.restype = ci
-        lib.ptz_match.argtypes = [vp] * 6 + [cf] + [ci] * 6 + [vp] * 8 + [ci, vp]
+        lib.ptz_match.argtypes = [vp] * 6 + [cf] + [ci] * 6 + [vp] * 9 + [ci, vp]
         lib.ptz_match.restype = ci
-        lib.ptz_cholesky.argtypes = [vp, vp, vp, ci, ci, vp]
+        lib.ptz_cholesky.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
         lib.ptz_cholesky.restype = ci
+        lib.ptz_smem_optin.argtypes = [ci]
+        lib.ptz_smem_optin.restype = ci
         lib.ptz_error_string.argtypes = [ci]
         lib.ptz_error_string.restype = ctypes.c_char_p
         _lib = lib

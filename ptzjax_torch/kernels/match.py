@@ -7,9 +7,14 @@ masked (Q, R) score matrix: per query row the argmax ``i1``, the best score
 and, with ``mutual``, per reference column the argmax over rows
 ``col_best``. Ties go to the first index, as ``torch.argmax`` and
 ``jnp.argmax`` decide. The plain version builds the score matrix and passes
-over it three more times; the kernel never writes it to global memory (its
-note says how it splits and merges the work). The decisions built on these
-vectors live in ``ptzjax_torch/match.py`` and are shared by both versions.
+over it three more times; the kernel never writes it to global memory. It
+is one launch: a grid of (64-query block) x (reference chunk) CTAs, each
+scoring 64 x 128 tiles, whose partials the last CTA of each block and chunk
+merges (its note says how). ``grid`` plans that grid and ``cta_tiles``
+lists what each CTA scores, in pure Python, so the CPU tests check that
+every (query, column) pair is scored exactly once. The decisions built on
+these vectors live in ``ptzjax_torch/match.py`` and are shared by both
+versions.
 
 ``match_scores`` takes the plain version for tensors on the CPU and
 launches the kernel for CUDA tensors; it never falls back from one to the
@@ -26,9 +31,13 @@ from ptzjax_torch.kernels import _build
 launches = 0   # kernel launches since the last reset (plain calls not counted)
 
 _NEG = -1e9
-_QB = 32            # query rows per CTA (csrc/match.cu)
-_TR = 64            # reference rows per tile
+QB = 64             # query rows per CTA (csrc/match.cu)
+TR = 128            # reference rows per tile
 _CTA_TARGET = 264   # two CTAs per SM of an H100 (132 SMs)
+# (device index, stream) -> (counters, scratch), grown when a grid needs
+# more: the counters are zeroed when made and the kernel leaves them at 0;
+# the scratch holds the partials
+_workspace: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def match_scores_plain(
@@ -60,13 +69,40 @@ def _check(name, x, shape, dtype, device):
         raise ValueError(f"match_scores: {name} must be contiguous")
 
 
-def _chunk(q: int, r: int) -> int:
-    """Reference columns per CTA: a multiple of the 64-row tile, chosen so
-    that the (query block, chunk) grid has about ``_CTA_TARGET`` CTAs."""
-    n_qb = -(-q // _QB)
-    tiles = -(-r // _TR)
+def grid(q: int, r: int) -> tuple[int, int, int]:
+    """(query blocks, chunk, chunks) of the kernel's grid for Q x R: the
+    chunk is a multiple of the 128-row tile, chosen so that the grid has
+    about ``_CTA_TARGET`` CTAs (one wave of 2 CTAs per SM) where R allows,
+    and one CTA per tile where it does not."""
+    n_qb = -(-q // QB)
+    tiles = -(-r // TR)
     want = max(1, -(-_CTA_TARGET // n_qb))
-    return _TR * -(-tiles // min(want, tiles))
+    chunk = TR * -(-tiles // min(want, tiles))
+    return n_qb, chunk, -(-r // chunk)
+
+
+def cta_tiles(q: int, r: int):
+    """Yield ((query block, chunk), rows, columns) for every tile each CTA
+    scores: ``range`` objects, as the kernel's loops bound them."""
+    n_qb, chunk, n_chunks = grid(q, r)
+    for qb in range(n_qb):
+        rows = range(qb * QB, min(q, qb * QB + QB))
+        for ch in range(n_chunks):
+            c_end = min(r, ch * chunk + chunk)
+            for c0 in range(ch * chunk, c_end, TR):
+                yield (qb, ch), rows, range(c0, min(c_end, c0 + TR))
+
+
+def _scratch(dev, stream: int, n_counters: int, floats: int):
+    """This stream's (counters, scratch), grown to the sizes asked for."""
+    key = (dev.index, stream)
+    counters, scratch = _workspace.get(key, (None, None))
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=dev)
+    if scratch is None or scratch.numel() < floats:
+        scratch = torch.empty(floats, dtype=torch.float32, device=dev)
+    _workspace[key] = counters, scratch
+    return counters, scratch
 
 
 def match_scores(
@@ -104,17 +140,16 @@ def match_scores(
     if q == 0:
         col = torch.zeros(r, dtype=torch.int32, device=dev) if mutual else None
         return i1, v1, v2, col
-    chunk = _chunk(q, r)
-    n_chunks = -(-r // chunk)
-    row_f = torch.empty((2, n_chunks, q), dtype=torch.float32, device=dev)
-    row_i = torch.empty((n_chunks, q), dtype=torch.int32, device=dev)
-    if mutual:
-        n_qb = -(-q // _QB)
-        col_f = torch.empty((n_qb, r), dtype=torch.float32, device=dev)
-        col_i = torch.empty((n_qb, r), dtype=torch.int32, device=dev)
-        col_best = torch.empty(r, dtype=torch.int32, device=dev)
-    else:
-        col_f = col_i = col_best = None
+    n_qb, chunk, n_chunks = grid(q, r)
+    n_col = n_qb * r if mutual else 0
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counters, scratch = _scratch(dev, stream, n_qb + n_chunks, 3 * n_chunks * q + 2 * n_col)
+    # scratch: v1 and v2 row partials, i1 row partials, column values, rows
+    base = scratch.data_ptr()
+    row_f, row_i = base, base + 8 * n_chunks * q
+    col_f = row_i + 4 * n_chunks * q if mutual else None
+    col_i = col_f + 4 * n_col if mutual else None
+    col_best = torch.empty(r, dtype=torch.int32, device=dev) if mutual else None
     # torch compares the float32 distance against the float32 of gate^2
     gate2 = float(np.float32(gate_px * gate_px)) if gated else 0.0
 
@@ -126,9 +161,8 @@ def match_scores(
         d_query.data_ptr(), d_ref.data_ptr(), q_valid.data_ptr(), r_valid.data_ptr(),
         ptr(xy_query if gated else None), ptr(xy_ref_pred if gated else None),
         gate2, int(gated), q, r, d, int(mutual), chunk,
-        row_f.data_ptr(), row_i.data_ptr(), ptr(col_f), ptr(col_i),
-        i1.data_ptr(), v1.data_ptr(), v2.data_ptr(), ptr(col_best),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        row_f, row_i, col_f, col_i, counters.data_ptr(),
+        i1.data_ptr(), v1.data_ptr(), v2.data_ptr(), ptr(col_best), dev.index, stream,
     )
     _build.check(err, "match_scores")
     global launches

@@ -76,3 +76,58 @@ def test_non_pd_is_reported_where_the_tpu_kernel_clamps():
         [np.linalg.eigvalsh(s[:k, :k].astype(np.float64)).min() <= 0 for k in range(1, 65)]
     )[0][0] + 1
     assert int(info) == first_bad
+
+
+@pytest.mark.parametrize("n", [1, 33, 64, 256, 300, 512, 900, 1024, 4096])
+def test_plan_owns_every_block_row_once_with_balanced_counts(n):
+    """The cluster's launch plan: each 32-row block row has exactly one
+    owner, the CTAs hold counts that differ by at most one, and slot s of a
+    CTA holds a block row of round s (the kernel's `block_of`)."""
+    p = tch.plan(n)
+    assert p.blocks == -(-n // tch.PANEL) and len(p.rows) == tch.CLUSTER
+    assert sorted(b for rows in p.rows for b in rows) == list(range(p.blocks))
+    counts = [len(rows) for rows in p.rows]
+    assert max(counts) - min(counts) <= 1
+    for cta, rows in enumerate(p.rows):
+        for slot, b in enumerate(rows):
+            assert p.owner[b] == cta and b // tch.CLUSTER == slot
+            assert tch.block_of(cta, slot) == b
+
+
+def _largest_share(owner, blocks):
+    """Trailing 32 x 32 tile updates of the busiest CTA: block row b takes
+    b - k of them at step k < b, b (b + 1) / 2 in all."""
+    work = [0] * tch.CLUSTER
+    for b in range(blocks):
+        work[owner[b]] += b * (b + 1) // 2
+    return max(work), sum(work)
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024])
+def test_reflected_dealing_balances_the_trailing_update(n):
+    """Dealing the block rows 0..7, 7..0, ... gives the busiest CTA no more
+    trailing work than dealing them b mod 8, and less from two rounds on
+    (at n = 512: 120 of 680 tile updates, against 148)."""
+    p = tch.plan(n)
+    reflected, total = _largest_share(p.owner, p.blocks)
+    cyclic, _ = _largest_share([b % tch.CLUSTER for b in range(p.blocks)], p.blocks)
+    assert total == sum(b * (b + 1) // 2 for b in range(p.blocks))
+    assert reflected <= cyclic and (p.blocks <= tch.CLUSTER or reflected < cyclic)
+    if n == 512:
+        assert (reflected, cyclic, total) == (120, 148, 680)
+
+
+@pytest.mark.parametrize(
+    "n,smem", [(1, True), (33, True), (256, True), (512, True), (513, False), (900, False), (1024, False)]
+)
+def test_plan_keeps_the_rows_in_shared_memory_up_to_n_512(n, smem):
+    """On an H100 (227 KB a block) the owned rows and the panel copy fit up
+    to the EKF's n = 512; beyond, the rows stay in L and the panel goes to a
+    global workspace. A smaller opt-in moves n = 512 to the global branch."""
+    p = tch.plan(n)
+    assert p.smem == smem
+    if smem:
+        assert 0 < p.smem_bytes + tch._STATIC_SMEM <= tch.H100_SMEM_OPTIN and p.work_floats == 0
+    else:
+        assert p.smem_bytes == 0 and p.work_floats == p.blocks * tch.PANEL * tch.PANEL
+    assert not tch.plan(512, smem_optin=100_000).smem

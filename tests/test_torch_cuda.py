@@ -117,7 +117,8 @@ def _unit(x):
 @pytest.mark.parametrize(
     "q,r,gated,mutual",
     [(512, 256, True, True), (300, 700, False, True), (512, 4096, False, False),
-     (70, 1, False, True), (5, 300, True, True), (33, 130, False, False)],
+     (70, 1, False, True), (5, 300, True, True), (33, 130, False, False),
+     (512, 32768, False, False), (130, 1000, True, True)],
 )
 def test_match_scores_matches_plain(cuda_device, q, r, gated, mutual):
     """Several CTAs and chunks, a ragged last tile, R = 1 and a single query
@@ -152,10 +153,35 @@ def test_match_scores_matches_plain(cuda_device, q, r, gated, mutual):
         assert int((cb != p_cb).sum()) <= int(near.sum())
 
 
-@pytest.mark.parametrize("n", [512, 256, 33, 1, 900])
+def test_match_scores_repeatable_across_shapes(cuda_device):
+    """Three calls at alternating shapes are bitwise equal call for call: the
+    ticket counters the last CTA resets leave no state behind, also when the
+    next call's grid differs."""
+    rng = np.random.default_rng(7)
+    calls = []
+    for q, r, gated, mutual in ((512, 256, True, True), (512, 4096, False, False), (33, 130, False, True)):
+        dr = _unit(rng.normal(size=(r, 128)))
+        dq = _unit(dr[rng.integers(0, r, q)] + 0.05 * rng.normal(size=(q, 128)))
+        args = tuple(
+            torch.from_numpy(a).to(cuda_device)
+            for a in (dq, dr, rng.random(q) > 0.1, rng.random(r) > 0.1)
+        )
+        if gated:
+            xy = torch.from_numpy(rng.uniform(0, 640, (max(q, r), 2)).astype(np.float32)).to(cuda_device)
+            args += (xy[:q], xy[:r], 200.0)
+        calls.append((args, mutual))
+    outs = [[tkm.match_scores(*a, mutual=m) for a, m in calls] for _ in range(3)]
+    for first, later in ((outs[0], outs[1]), (outs[0], outs[2])):
+        for x, y in zip(first, later):
+            for u, v in zip(x, y):
+                assert (u is None and v is None) or torch.equal(u, v)
+
+
+@pytest.mark.parametrize("n", [512, 256, 33, 1, 900, 1024, 64])
 def test_cholesky_matches_cusolver(cuda_device, n):
-    """The EKF's n = 512 and 256, a ragged last panel, a single pivot, and a
-    size whose trailing rows are staged in two slots."""
+    """The EKF's n = 512 and 256, a ragged last panel, a single pivot, fewer
+    block rows than CTAs, and two sizes whose rows do not fit in shared
+    memory (the global-memory branch)."""
     rng = np.random.default_rng(n)
     a = rng.normal(size=(n, n)).astype(np.float32) * 0.1
     s = torch.from_numpy(a @ a.T + np.eye(n, dtype=np.float32)).to(cuda_device)

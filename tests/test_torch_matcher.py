@@ -120,3 +120,35 @@ def test_plain_reductions_follow_the_tie_rules():
         t(s), t(eye), t(qv), t(np.ones(4, bool)), t(xy), t(far), gate_px=10.0, mutual=False,
     )
     assert cb is None and n(v1).tolist() == [-1e9] * 4
+
+
+@pytest.mark.parametrize(
+    "q,r",
+    [(512, 256), (512, 2048), (512, 4096), (512, 32768), (70, 1), (33, 130), (1, 129), (65, 128)],
+)
+def test_grid_scores_every_pair_exactly_once(q, r):
+    """The kernel's grid at the four main-path shapes and ragged ones: chunks
+    are whole 128-row tiles, every CTA has a tile, and the tiles cover every
+    (query, column) pair exactly once."""
+    n_qb, chunk, n_chunks = tkm.grid(q, r)
+    assert chunk % tkm.TR == 0 and (n_chunks - 1) * chunk < r <= n_chunks * chunk
+    assert (n_qb - 1) * tkm.QB < q <= n_qb * tkm.QB
+    count = np.zeros((q, r), np.uint8)
+    ctas = set()
+    for (qb, ch), rows, cols in tkm.cta_tiles(q, r):
+        assert rows.start == qb * tkm.QB and len(rows) <= tkm.QB
+        assert (cols.start - ch * chunk) % tkm.TR == 0 and ch * chunk <= cols.start
+        assert cols.stop <= min(r, (ch + 1) * chunk) and len(cols) <= tkm.TR
+        count[rows.start:rows.stop, cols.start:cols.stop] += 1
+        ctas.add((qb, ch))
+    assert (count == 1).all()
+    assert ctas == {(qb, ch) for qb in range(n_qb) for ch in range(n_chunks)}
+
+
+def test_grid_sizes_at_the_path_shapes():
+    """About two CTAs per SM of an H100 (132 SMs) at the keyframe
+    relocalization shape, and one wave at the tracking shape."""
+    n_qb, _, n_chunks = tkm.grid(512, 32768)
+    assert 132 < n_qb * n_chunks <= 264
+    n_qb, _, n_chunks = tkm.grid(512, 256)
+    assert n_qb * n_chunks <= 132
