@@ -4,14 +4,23 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --detect-stage`` prints only phases 1-2 and the
+detection-stage line of 3a, through the public ``detect_keypoints``, so a
+copy of this script placed at the root of an earlier checkout measures that
+checkout's detection stage.)
+
 Phases, each of which raises (non-zero exit) on failure:
 
 1. device and flags: a CUDA device is required (no CPU fallback); both TF32
    flags are set to False; the card's name and power limit are printed;
 2. build: the CUDA kernels are compiled from ``ptzjax_torch/csrc`` with nvcc;
-3. kernel vs plain torch on the card, at the main path's shapes: (a)
-   Harris+NMS on a 720p frame; (b) the window gather, 512 windows at win 46
-   and 18; (c) the matcher at 512 x 256 gated at 60 px (tracking), 512 x
+3. kernel vs plain torch on the card, at the main path's shapes: (a) the
+   detection maps (Harris, NMS, mask, border, subpixel fit, floor) on a
+   720p frame with no mask and with a mask of three boxes, bitwise (sup and
+   floor everywhere, off at the survivors), then the whole
+   ``detect_keypoints`` call: device time and kernels per call; (b) the
+   window gather, 512 windows at win 46 and 18; (c) the matcher at 512 x 256
+   gated at 60 px (tracking), 512 x
    2,048 (the matcher bench shape), 512 x 4,096 mutual (map relocalization)
    and 512 x 32,768 one-way (keyframe relocalization), each call exactly one
    kernel, and three calls bitwise equal at 512 x 32,768 and 512 x 256;
@@ -25,9 +34,9 @@ Phases, each of which raises (non-zero exit) on failure:
    frames (one full period of its pan sweep) so that the product defaults'
    keyframe policy inserts keyframes (at 120 frames it inserts none),
    through ``PTZSlam.init`` + ``run_segment_pixels`` at the SLAMConfig
-   product defaults. (a) The first frames must agree with the same code run
-   on the CPU (plain versions). (b) The whole sequence: the kernel launch
-   counters must equal the counts the call sites give (detection and
+   product defaults, on the card. (a) The first frames must agree with the
+   same code run on the CPU (``device="cpu"``, plain versions). (b) The
+   whole sequence: the kernel launch counters must equal the counts the call sites give (detection and
    windows once per frame, the matcher once per tracked frame and per
    keyframe insert, the Cholesky once per tracked frame), no frame may be
    lost, the pan error against ground truth must stay under 3e-3 rad and
@@ -195,36 +204,71 @@ def render(frames: int, w: int, h: int):
     return imgs.astype(np.float32), cams, intr
 
 
+def detect_stage_line(img: torch.Tensor, card: str) -> str:
+    """The whole ``detect_keypoints`` call on a 720p frame at the SLAMConfig
+    defaults (512 keypoints, no mask): event and device time, and device
+    kernels per call. Uses only the public function, so the same code
+    measures an earlier checkout (``--detect-stage``)."""
+    from ptzjax_torch.config import SLAMConfig
+    from ptzjax_torch.kernels.detect import detect_keypoints
+
+    cfg = SLAMConfig()
+
+    def call():
+        return detect_keypoints(img, cfg.max_keypoints, threshold=cfg.detector_threshold)
+
+    dev_ms, names = device_time(call)
+    per_call = sum(names.values()) / 50
+    return (
+        f"detect_keypoints stage 720x1280, {cfg.max_keypoints} keypoints: {dev_ms:.4f} ms device, "
+        f"{per_call:g} kernels a call, {time_ms(call):.4f} ms event [{card}]"
+    )
+
+
 def kernel_phase(img: torch.Tensor, card: str) -> list[dict]:
     """Each kernel against its plain version on the card, at main-path
     shapes."""
+    from ptzjax_torch.config import SLAMConfig
     from ptzjax_torch.kernels import harris_nms as hn
     from ptzjax_torch.kernels import window_gather as wg
     from ptzjax_torch.kernels.descriptor import PATCH, SCALED_WIN, _window_starts
 
-    # A: Harris + NMS on a 720p frame; compared away from an 8-px border
-    resp_k, sup_k = hn.harris_nms(img)
-    resp_p, sup_p = hn.harris_nms_plain(img)
-    torch.cuda.synchronize()
-    b = 8
-    rk, rp = resp_k[b:-b, b:-b], resp_p[b:-b, b:-b]
-    torch.testing.assert_close(rk, rp, rtol=1e-4, atol=1e-7)
-    check(
-        torch.equal(sup_k[b:-b, b:-b] > -1e29, sup_p[b:-b, b:-b] > -1e29),
-        "harris_nms NMS keep-set differs from the plain version",
-    )
-    harris_err = float((rk - rp).abs().max())
+    # A: the detection maps (Harris, NMS, mask, border, subpixel fit and
+    # floor) on a 720p frame at the SLAMConfig defaults, with no mask and
+    # with a mask of a few rectangular boxes: bitwise against the plain
+    # version (sup and floor everywhere, off at the survivors)
     h, w = img.shape
-    # one image read and two map writes; 78 fp32 operations a pixel (2
-    # differences and 2 scalings, 3 products, 2 x 3 five-tap passes of 5
-    # multiplies and 4 adds, 7 for the response, 10 for the NMS)
-    harris = timings(
-        lambda: hn.harris_nms(img), lambda: hn.harris_nms_plain(img), 3 * 4 * h * w, 78 * h * w
-    )
-    print(
-        f"harris_nms 720x1280: resp max_abs_err {harris_err} (rtol 1e-4, atol 1e-7), "
-        f"keep-sets equal; {describe(harris)} [{card}]"
-    )
+    thr = SLAMConfig().detector_threshold
+    boxes = torch.ones((h, w), dtype=torch.bool, device=img.device)
+    for y0, y1, x0, x1 in ((100, 300, 200, 400), (450, 700, 900, 1200), (0, 120, 1100, 1280)):
+        boxes[y0:y1, x0:x1] = False
+    harris = {}
+    for name, mask in (("no mask", None), ("3 boxes", boxes)):
+        sup, off, floor = hn.detect_maps(img, mask, 8, thr)
+        p_sup, p_off, p_floor = hn.detect_maps_plain(img, mask, 8, thr)
+        torch.cuda.synchronize()
+        keep = p_sup > -1e29
+        survivors = int(keep.sum())
+        check(torch.equal(sup, p_sup), f"detect_maps ({name}): sup is not bitwise equal")
+        check(torch.equal(floor, p_floor), f"detect_maps ({name}): floor {float(floor)} != {float(p_floor)}")
+        check(torch.equal(off[keep], p_off[keep]), f"detect_maps ({name}): off differs at survivors")
+        check(survivors > 1000, f"detect_maps ({name}): only {survivors} survivors")
+        # the image read, sup written (and the mask read) once, 8 B of off
+        # per survivor and the floor; 78 fp32 operations a pixel (2
+        # differences and 2 scalings, 3 products, 2 x 3 five-tap passes of 5
+        # multiplies and 4 adds, 7 for the response, 10 for the NMS) and 14
+        # for each survivor's fit
+        nbytes = 8 * h * w + (h * w if mask is not None else 0) + 8 * survivors + 4
+        harris[name] = timings(
+            lambda: hn.detect_maps(img, mask, 8, thr), lambda: hn.detect_maps_plain(img, mask, 8, thr),
+            nbytes, 78 * h * w + 14 * survivors,
+        )
+        harris[name]["max_abs_err"] = float((sup - p_sup).abs().max())
+        print(
+            f"detect_maps 720x1280 ({name}): {survivors} survivors, sup, floor and off at the "
+            f"survivors bitwise equal; {describe(harris[name])} [{card}]"
+        )
+    print(detect_stage_line(img, card))
 
     # B: 512 windows at win 46 (per frame) and 18 (bootstrap), bitwise
     rng = np.random.default_rng(0)
@@ -258,7 +302,7 @@ def kernel_phase(img: torch.Tensor, card: str) -> list[dict]:
             "name": "harris_nms", "route": "cuda",
             "source": "ptzjax_torch/csrc/harris_nms.cu",
             "replaces": "ptzjax/kernels/detect_pallas.py:106",
-            "max_abs_err": harris_err, **harris,
+            **harris["no mask"], "ms_by_shape": harris,
         },
         {
             "name": "gather_windows", "route": "cuda",
@@ -273,12 +317,13 @@ def kernel_phase(img: torch.Tensor, card: str) -> list[dict]:
 
 def run_slice(imgs: torch.Tensor, cams, intr, reloc_mode: str = "map"):
     """``PTZSlam.init`` on frame 0, then ``run_segment_pixels`` on the rest,
-    at the product defaults (descriptor_f_ref AUTO)."""
+    at the product defaults (descriptor_f_ref AUTO), on the device of
+    ``imgs``."""
     from ptzjax_torch.config import SLAMConfig
     from ptzjax_torch.frontend import extract_features
     from ptzjax_torch.slam import PTZSlam
 
-    slam = PTZSlam(SLAMConfig(reloc_mode=reloc_mode), intr)
+    slam = PTZSlam(SLAMConfig(reloc_mode=reloc_mode), intr, device=imgs.device)
     state = slam.init(*extract_features(imgs[0], slam.cfg), cams[0])
     return slam.run_segment_pixels(state, imgs[1:])
 
@@ -536,7 +581,7 @@ def frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
     )
 
     def run(mode: str, traced: bool) -> dict:
-        slam = PTZSlam(SLAMConfig(reloc_mode=mode), intr)
+        slam = PTZSlam(SLAMConfig(reloc_mode=mode), intr)   # the card, by default
         state = slam.init(*extract_features(dark[0], slam.cfg), cams[0])
         at, out = 1, {}
         for kind, frames, event in windows:
@@ -606,6 +651,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s")
+    if "--detect-stage" in sys.argv[1:]:
+        imgs_np, _, _ = render(1, 1280, 720)
+        print(detect_stage_line(torch.from_numpy(imgs_np[0]).to(dev), card))
+        return 0
 
     # 3. kernels vs plain at main-path shapes
     w, h, frames = 1280, 720, 192

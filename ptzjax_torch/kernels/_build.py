@@ -24,7 +24,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("harris_nms.cu", "gather_windows.cu", "match.cu", "cholesky.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ptzjax_torch"
-# -fmad=false: no multiply-add contraction, so the Harris kernel and the
+# -fmad=false: no multiply-add contraction, so the detection kernel and the
 # matcher's gate round once per operation like the plain torch versions (see
 # csrc/harris_nms.cu); where a kernel wants an FMA it writes __fmaf_rn
 NVCC_FLAGS = (
@@ -98,7 +98,7 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ptz_harris_nms.argtypes = [vp, vp, vp, ci, ci, cf, ci, vp]
+        lib.ptz_harris_nms.argtypes = [vp] * 7 + [ci] * 3 + [cf, cf, ci, vp]
         lib.ptz_harris_nms.restype = ci
         lib.ptz_gather_windows.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.ptz_gather_windows.restype = ci

@@ -1,8 +1,10 @@
 """Keypoint detection: Harris response + 3x3 NMS + top-k keypoint table.
 
 Port of ``ptzjax/kernels/detect.py``. The plain torch functions here define
-the semantics and run on the CPU; for a CUDA image the response+NMS pass
-goes through the hand-written kernel in ``kernels/harris_nms.py``.
+the semantics and run on the CPU; ``detect_keypoints`` gets its maps (the
+suppressed response with mask and border, the subpixel offsets and the
+floor) from ``kernels/harris_nms.py:detect_maps``, one hand-written kernel
+for a CUDA image, and adds the top-k.
 
 Smoothing is written as shifted sums, as in the reference, not as a
 ``conv2d``: a float32 convolution would go through cuDNN in TF32.
@@ -13,6 +15,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ptzjax_torch import _device
 
 _NEG = -1e30
 
@@ -129,31 +133,20 @@ def detect_keypoints(
     Returns:
       KeypointTable sorted by descending score.
     """
-    from ptzjax_torch.kernels.harris_nms import harris_nms
+    from ptzjax_torch.kernels.harris_nms import detect_maps
 
-    h, w = img.shape
-    resp, sup = harris_nms(img.to(torch.float32).contiguous())
-    neg = torch.full_like(sup, _NEG)
-    if mask is not None:
-        sup = torch.where(mask, sup, neg)
-    yy = torch.arange(h, device=img.device)[:, None]
-    xx = torch.arange(w, device=img.device)[None, :]
-    inb = (yy >= border) & (yy < h - border) & (xx >= border) & (xx < w - border)
-    sup = torch.where(inb, sup, neg)
-
-    floor = threshold * sup.max().clamp_min(1e-20)
+    w = img.shape[1]
+    # the suppressed, masked and bordered response, the subpixel offsets at
+    # its survivors and the floor, in one kernel on the card
+    sup, off, floor = detect_maps(img.to(torch.float32).contiguous(), mask, border, threshold)
     score, idx = torch.topk(sup.reshape(-1), max_keypoints, sorted=True)
-    ys = idx // w
-    xs = idx % w
     valid = score > floor
-
-    # subpixel refinement reads the raw (unsuppressed) response map
-    off_x, off_y = _subpixel(resp, ys, xs)
-    xy = torch.stack(
-        [xs.to(torch.float32) + off_x, ys.to(torch.float32) + off_y], dim=-1
-    )
+    # a valid entry is a survivor (floor > 0), so its offsets are defined;
+    # an invalid entry's may be garbage, and the where below discards them
+    xy = torch.stack([idx % w, idx // w], dim=-1).to(torch.float32) + off.reshape(-1, 2).index_select(0, idx)
+    zero = _device.const((0.0,), img.device)   # a scalar 0.0 would be filled on the device each call
     return KeypointTable(
-        xy=torch.where(valid[:, None], xy, torch.zeros_like(xy)),
-        score=torch.where(valid, score, torch.zeros_like(score)),
+        xy=torch.where(valid[:, None], xy, zero),
+        score=torch.where(valid, score, zero),
         valid=valid,
     )

@@ -69,18 +69,28 @@ class PTZSlam:
 
     Typical use::
 
-        slam = PTZSlam(cfg, intr)
+        slam = PTZSlam(cfg, intr)                  # on the card
         state = slam.init(xy0, desc0, valid0, pose0)
         state, infos = slam.run_segment_pixels(state, frames)
 
-    Tensors stay on the device of the features given to ``init`` and the
-    frames given to ``run_segment_pixels``; the features entry points
-    (``process``, ``run_segment``) move their inputs to the state's device.
+    Everything runs on ``device``: by default ``torch.device("cuda")``, and
+    the constructor raises where there is no CUDA device (no CPU fallback);
+    ``device="cpu"`` asks for the CPU. The entry points move their inputs,
+    numpy arrays or tensors on any device, to it (``run_segment_pixels``
+    one frame at a time).
     """
 
-    def __init__(self, cfg: SLAMConfig, intr: Intrinsics):
+    def __init__(self, cfg: SLAMConfig, intr: Intrinsics, device=None):
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "PTZSlam: no CUDA device; the port runs on the card by default. "
+                    "Pass device='cpu' to run on the CPU."
+                )
+            device = "cuda"
         self.cfg = cfg
         self.intr = intr
+        self.device = torch.device(device)
 
     def init(self, xy, desc, valid, pose0) -> SlamState:
         """First-frame bootstrap from a known pose. Resolves
@@ -88,7 +98,8 @@ class PTZSlam:
         if self.cfg.descriptor_f_ref < 0:
             self.cfg = self.cfg.replace(descriptor_f_ref=float(pose0[2]))
         cfg = self.cfg
-        dev = xy.device
+        dev = self.device
+        xy, desc, valid = (torch.as_tensor(v, device=dev) for v in (xy, desc, valid))
         state = SlamState(
             ekf=ekflib.init_state(pose0, cfg, device=dev),
             slot_desc=torch.zeros((cfg.max_rays, cfg.kf_desc_dim), dtype=torch.float32, device=dev),
@@ -105,9 +116,8 @@ class PTZSlam:
 
     def process(self, state: SlamState, xy, desc, valid) -> tuple[SlamState, dict[str, Any]]:
         """One frame from features (tensors or arrays) + its host info dict."""
-        dev = state.ekf.cam.device
         state, finfo = self.step(
-            state, *(torch.as_tensor(v, device=dev) for v in (xy, desc, valid))
+            state, *(torch.as_tensor(v, device=self.device) for v in (xy, desc, valid))
         )
         return state, info_to_dict(finfo)
 
@@ -118,9 +128,8 @@ class PTZSlam:
         valid (T, Q). ``frame_ok`` (T,) marks real frames (a False frame
         passes the state through). Returns the final state and the FrameInfo
         fields stacked over T."""
-        dev = state.ekf.cam.device
         xy_seq, desc_seq, valid_seq = (
-            torch.as_tensor(v, device=dev) for v in (xy_seq, desc_seq, valid_seq)
+            torch.as_tensor(v, device=self.device) for v in (xy_seq, desc_seq, valid_seq)
         )
         return _run_segment(
             state, xy_seq, desc_seq, valid_seq, frame_ok, cfg=self.cfg, intr=self.intr
@@ -130,12 +139,14 @@ class PTZSlam:
         self, state: SlamState, imgs, masks=None, frame_ok=None
     ) -> tuple[SlamState, FrameInfo]:
         """From-pixels chunk: frames (T, H, W) -> detect/describe -> SLAM step,
-        frame by frame. ``masks`` (T, H, W) bool or None; ``frame_ok`` (T,)
-        marks real frames (a False frame passes the state through).
+        frame by frame. ``imgs`` and ``masks`` (T, H, W) bool or None may be
+        numpy arrays or tensors on any device: each frame moves to the
+        device when its turn comes. ``frame_ok`` (T,) marks real frames (a
+        False frame passes the state through).
 
         Returns the final state and the FrameInfo fields stacked over T."""
         return _run_segment_pixels(
-            state, imgs, masks, frame_ok, cfg=self.cfg, intr=self.intr
+            state, imgs, masks, frame_ok, cfg=self.cfg, intr=self.intr, device=self.device
         )
 
 
@@ -527,10 +538,11 @@ def _run_segment(state: SlamState, xy_seq, desc_seq, valid_seq, frame_ok, *, cfg
     return state, _stack(infos)
 
 
-def _run_segment_pixels(state: SlamState, imgs, masks, frame_ok, *, cfg, intr):
-    """Raw frames -> features -> SLAM step, frame by frame. The descriptor
-    scale uses the LIVE focal estimate, sanitized: a non-finite or
-    non-positive focal falls back to the bootstrap f_ref."""
+def _run_segment_pixels(state: SlamState, imgs, masks, frame_ok, *, cfg, intr, device):
+    """Raw frames -> features -> SLAM step, frame by frame, each frame (and
+    mask) moved to ``device`` in its turn. The descriptor scale uses the
+    LIVE focal estimate, sanitized: a non-finite or non-positive focal falls
+    back to the bootstrap f_ref."""
     t = imgs.shape[0]
     ok = _frame_flags(frame_ok, t)
     f_ref = cfg.descriptor_f_ref if cfg.descriptor_f_ref > 0 else 1000.0
@@ -541,8 +553,9 @@ def _run_segment_pixels(state: SlamState, imgs, masks, frame_ok, *, cfg, intr):
             continue
         f_est = state.ekf.pose[2]
         f_safe = torch.where(torch.isfinite(f_est) & (f_est > 1.0), f_est, f_ref)
+        mask = None if masks is None else torch.as_tensor(masks[i], device=device)
         xy, desc, valid = extract_features(
-            imgs[i], cfg, mask=None if masks is None else masks[i], focal=f_safe
+            torch.as_tensor(imgs[i], device=device), cfg, mask=mask, focal=f_safe
         )
         state, info = _frame_step(state, xy, desc, valid, cfg=cfg, intr=intr)
         infos.append(info)

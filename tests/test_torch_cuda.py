@@ -21,6 +21,7 @@ from ptzjax_torch.kernels import descriptor as tdesc
 from ptzjax_torch.kernels import harris_nms as thn
 from ptzjax_torch.kernels import match as tkm
 from ptzjax_torch.kernels import window_gather as twg
+from ptzjax_torch.kernels.detect import detect_keypoints
 from ptzjax_torch.slam import PTZSlam
 
 pytestmark = pytest.mark.cuda
@@ -51,19 +52,67 @@ def _render(num_frames, seed=1):
     return np.stack([synth.render_image(pano, c, intr, W, H) for c in cams]), cams, intr
 
 
+def _maps_equal(got, ref):
+    """sup and floor bitwise, off bitwise at the survivors (elsewhere the
+    kernel leaves it unspecified)."""
+    (sup, off, floor), (p_sup, p_off, p_floor) = got, ref
+    keep = p_sup > -1e29
+    return torch.equal(sup, p_sup) and torch.equal(floor, p_floor) and torch.equal(off[keep], p_off[keep])
+
+
+def _boxes(shape, device):
+    """A mask with two rectangular boxes cut out (True where allowed)."""
+    h, w = shape
+    m = torch.ones(shape, dtype=torch.bool, device=device)
+    m[h // 5: h // 2, w // 6: w // 3] = False
+    m[2 * h // 3:, w // 2: 3 * w // 4] = False
+    return m
+
+
+@pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("shape", [(360, 640), (181, 333), (5, 7), (1, 1)])
-def test_harris_nms_matches_plain_everywhere(cuda_device, shape):
-    """Tile edges, images smaller than a tile and a single pixel: the kernel
-    follows the plain version's border semantics over the whole image."""
+def test_harris_nms_matches_plain_everywhere(cuda_device, shape, masked):
+    """Strip and run edges, odd widths, images smaller than a strip and a
+    single pixel: the kernel is bitwise its plain version over the whole
+    image, at border 8 and 1."""
     img = torch.from_numpy(
         np.random.default_rng(shape[0]).normal(size=shape).astype(np.float32)
     ).to(cuda_device)
-    before = thn.launches
-    resp_k, sup_k = thn.harris_nms(img)
-    assert thn.launches == before + 1
-    resp_p, sup_p = thn.harris_nms_plain(img)
-    torch.testing.assert_close(resp_k, resp_p, rtol=1e-4, atol=1e-7)
-    assert torch.equal(sup_k > -1e29, sup_p > -1e29)
+    mask = _boxes(shape, cuda_device) if masked else None
+    for border in (8, 1):
+        before = thn.launches
+        got = thn.detect_maps(img, mask, border, 0.01)
+        assert thn.launches == before + 1
+        assert _maps_equal(got, thn.detect_maps_plain(img, mask, border, 0.01))
+
+
+def test_detect_keypoints_on_card_matches_plain(cuda_device):
+    """The whole detection call, the kernel path on the card against the
+    plain path (the CPU tensor), with and without a mask."""
+    imgs, _, _ = _render(1)
+    img = torch.from_numpy(imgs[0]).to(cuda_device)
+    for mask in (None, _boxes(img.shape, cuda_device)):
+        got = detect_keypoints(img, 512, threshold=1e-4, mask=mask)
+        ref = detect_keypoints(img.cpu(), 512, threshold=1e-4, mask=None if mask is None else mask.cpu())
+        assert int(ref.valid.sum()) > 100
+        for g, r in zip(got, ref):
+            assert torch.equal(g.cpu(), r)
+
+
+def test_detect_maps_repeatable_across_shapes(cuda_device):
+    """Three calls at alternating shapes are bitwise equal call for call: the
+    ticket counter the last CTA resets leaves no state behind, also when
+    the next call's grid differs."""
+    rng = np.random.default_rng(3)
+    calls = [
+        (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda_device), m)
+        for s, m in (((360, 640), False), ((181, 333), True), ((720, 1280), False))
+    ]
+    calls = [(img, _boxes(img.shape, cuda_device) if m else None) for img, m in calls]
+    outs = [[thn.detect_maps(img, mask, 8, 0.01) for img, mask in calls] for _ in range(3)]
+    for later in outs[1:]:
+        for x, y in zip(outs[0], later):
+            assert _maps_equal(x, y)
 
 
 @pytest.mark.parametrize("win", [tdesc.PATCH + 2, tdesc.SCALED_WIN])
@@ -88,9 +137,16 @@ def test_gather_windows_bitwise(cuda_device, win):
 def test_wrappers_reject_bad_inputs(cuda_device):
     img = torch.zeros((40, 60), dtype=torch.float64, device=cuda_device)
     with pytest.raises(ValueError):
-        thn.harris_nms(img)                              # float64
+        thn.detect_maps(img)                             # float64
     with pytest.raises(ValueError):
-        thn.harris_nms(img.float().T)                    # not contiguous
+        thn.detect_maps(img.float().T)                   # not contiguous
+    ok_mask = torch.ones((40, 60), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError):
+        thn.detect_maps(img.float(), ok_mask[:, :59])    # mask of another shape
+    with pytest.raises(ValueError):
+        thn.detect_maps(img.float(), ok_mask.to(torch.uint8))   # mask of another dtype
+    with pytest.raises(ValueError):
+        thn.detect_maps(img.float(), ok_mask, border=0)  # the kernel needs border >= 1
     idx = torch.zeros(3, dtype=torch.int64, device=cuda_device)
     with pytest.raises(ValueError):
         twg.gather_windows(img.float(), idx, idx, 18)   # int64 starts
@@ -209,7 +265,7 @@ def test_slice_on_card_matches_cpu(cuda_device):
     )
     out = {}
     for dev in ("cpu", cuda_device):
-        slam = PTZSlam(cfg, intr)
+        slam = PTZSlam(cfg, intr, device=dev)
         frames = torch.from_numpy(imgs[:14]).to(dev)
         state = slam.init(*extract_features(frames[0], slam.cfg), cams[0])
         state, infos = slam.run_segment_pixels(state, frames[1:])
@@ -227,7 +283,7 @@ def _blackout_run(dev, imgs, cams, intr, mode):
         image_width=W, image_height=H, max_keypoints=160, max_rays=96, max_map_rays=1024,
         max_keyframes=16, min_inliers=10, keyframe_interval=6, reloc_mode=mode,
     )
-    slam = PTZSlam(cfg, intr)
+    slam = PTZSlam(cfg, intr, device=dev)
     frames = torch.from_numpy(imgs).to(dev)
     counts = (tkm.launches, tch.launches)
     state = slam.init(*extract_features(frames[0], slam.cfg), cams[0])

@@ -44,15 +44,67 @@ class TestHarris:
     def test_cpu_wrapper_is_plain_and_matches_pallas_interior(self):
         img = texture(h=100, w=200, seed=4)
         before = thn.launches
-        resp, sup = thn.harris_nms(t(img))
+        sup, off, floor = thn.detect_maps(t(img), border=8, threshold=0.01)
         assert thn.launches == before          # a CPU tensor never reaches the kernel
-        r_plain, s_plain = thn.harris_nms_plain(t(img))
-        np.testing.assert_array_equal(n(resp), n(r_plain))
+        s_plain, o_plain, f_plain = thn.detect_maps_plain(t(img), border=8, threshold=0.01)
         np.testing.assert_array_equal(n(sup), n(s_plain))
+        np.testing.assert_array_equal(n(off), n(o_plain))
+        np.testing.assert_array_equal(n(floor), n(f_plain))
         resp_p, sup_p = harris_nms_pallas(jnp.asarray(img))   # interpret mode on the CPU
         b = 8  # the Pallas kernel's edge padding differs within 4 px
-        np.testing.assert_allclose(n(resp)[b:-b, b:-b], n(resp_p)[b:-b, b:-b], rtol=1e-4, atol=1e-7)
-        np.testing.assert_array_equal(_keep(sup)[b:-b, b:-b], _keep(sup_p)[b:-b, b:-b])
+        keep = _keep(sup)[b:-b, b:-b]
+        np.testing.assert_array_equal(keep, _keep(sup_p)[b:-b, b:-b])
+        np.testing.assert_allclose(n(sup)[b:-b, b:-b][keep], n(resp_p)[b:-b, b:-b][keep], rtol=1e-4, atol=1e-7)
+
+    @pytest.mark.parametrize("border", [8, 1])
+    @pytest.mark.parametrize("masked", [False, True])
+    def test_detect_maps_plain_matches_reference(self, masked, border):
+        """sup, off and floor against the JAX package's response, NMS, mask,
+        border and subpixel fit (the steps of its detect_keypoints)."""
+        img = texture(h=90, w=150, seed=11)
+        h, w = img.shape
+        mask = None
+        if masked:
+            mask = np.ones(img.shape, bool)
+            mask[:, :40] = False
+            mask[30:60, 90:120] = False
+        sup, off, floor = thn.detect_maps_plain(
+            t(img), None if mask is None else t(mask), border=border, threshold=0.01
+        )
+        resp_j = jdet.harris_response(jnp.asarray(img))
+        sup_j = jdet._nms3(resp_j)
+        if mask is not None:
+            sup_j = jnp.where(jnp.asarray(mask), sup_j, -1e30)
+        yy, xx = np.mgrid[:h, :w]
+        inb = (yy >= border) & (yy < h - border) & (xx >= border) & (xx < w - border)
+        sup_j = jnp.where(jnp.asarray(inb), sup_j, -1e30)
+        floor_j = 0.01 * jnp.maximum(sup_j.max(), 1e-20)
+        keep = _keep(sup)
+        np.testing.assert_array_equal(keep, _keep(sup_j))
+        assert keep.sum() > 50 and (not masked or not keep[:, :40].any())
+        np.testing.assert_allclose(n(sup)[keep], n(sup_j)[keep], rtol=1e-4, atol=1e-7)
+        np.testing.assert_allclose(n(floor)[0], float(floor_j), rtol=1e-4)
+        ys, xs = np.nonzero(keep)
+        ox, oy = jdet._subpixel(resp_j, jnp.asarray(ys), jnp.asarray(xs))
+        np.testing.assert_allclose(n(off)[keep], np.stack([n(ox), n(oy)], -1), atol=1e-6)
+        np.testing.assert_array_equal(n(off)[~keep], 0.0)
+
+    @pytest.mark.parametrize(
+        "shape",
+        [(720, 1280), (360, 640), (181, 333), (5, 7), (1, 1), (1000, 57), (8, 56), (9, 57), (1080, 1920)],
+    )
+    def test_plan_covers_every_pixel_once(self, shape):
+        """The kernel's grid writes every output pixel exactly once, with
+        at most WARPS - 1 idle warps in its last CTA."""
+        h, w = shape
+        p = thn.plan(h, w)
+        assert p.strips * thn.STRIP >= w > (p.strips - 1) * thn.STRIP
+        assert p.runs * thn.RUN >= h > (p.runs - 1) * thn.RUN
+        assert (p.ctas - 1) * thn.WARPS < p.strips * p.runs <= p.ctas * thn.WARPS
+        hits = np.zeros(shape, int)
+        for _, rows, cols in thn.warp_tiles(h, w):
+            hits[rows.start:rows.stop, cols.start:cols.stop] += 1
+        np.testing.assert_array_equal(hits, 1)
 
 
 def _assert_same_table(got, ref, atol=1e-3):

@@ -48,7 +48,7 @@ def test_lost_and_recovered_matches_reference(mode):
     feats = _features(seq, cfg)
     ref = _run(JaxSlam(cfg, seq.intr), feats, seq.cameras[0], lambda f: f)
     got = _run(
-        tslam.PTZSlam(port_cfg(cfg), port_intr(seq.intr)), feats, seq.cameras[0],
+        tslam.PTZSlam(port_cfg(cfg), port_intr(seq.intr), device="cpu"), feats, seq.cameras[0],
         lambda f: tuple(t(v) for v in f),
     )
     for key in ("lost", "event", "reloc_success"):
@@ -79,7 +79,7 @@ def test_run_segment_matches_reference_with_padding():
     jslam = JaxSlam(CFG, seq.intr)
     jstate = jslam.init(*feats[0], seq.cameras[0])
     jstate, ref = jax.device_get(jslam.run_segment(jstate, xy, desc, valid, frame_ok=ok))
-    slam = tslam.PTZSlam(port_cfg(CFG), port_intr(seq.intr))
+    slam = tslam.PTZSlam(port_cfg(CFG), port_intr(seq.intr), device="cpu")
     state = slam.init(*(t(v) for v in feats[0]), seq.cameras[0])
     state, got = slam.run_segment(state, xy, desc, valid, frame_ok=ok)
     got = tslam.FrameInfo(*(n(v) for v in got))

@@ -22,7 +22,7 @@ FRAMES = 30
 
 
 def _run_port(cfg, intr, imgs, cam0):
-    slam = tslam.PTZSlam(port_cfg(cfg), port_intr(intr))
+    slam = tslam.PTZSlam(port_cfg(cfg), port_intr(intr), device="cpu")
     frames = t(imgs)
     state = slam.init(*tfront.extract_features(frames[0], slam.cfg), cam0)
     state, infos = slam.run_segment_pixels(state, frames[1:])
@@ -57,7 +57,7 @@ def test_slice_matches_reference(keyframe_interval):
 
 def test_skipped_frames_pass_state_through():
     imgs, cams, intr = render(FRAMES, seed=1)
-    slam = tslam.PTZSlam(port_cfg(small_cfg()), port_intr(intr))
+    slam = tslam.PTZSlam(port_cfg(small_cfg()), port_intr(intr), device="cpu")
     frames = t(imgs[:6])
     state = slam.init(*tfront.extract_features(frames[0], slam.cfg), cams[0])
     ok = np.array([True, False, True, False, True])
@@ -71,3 +71,39 @@ def test_skipped_frames_pass_state_through():
     one = tslam.info_to_dict(tslam.FrameInfo(*(v[0] for v in infos)))
     assert one["event"] == "track" and not one["lost"] and one["num_matches"] > 20
     np.testing.assert_array_equal(one["pose"], rows[0]["pose"])
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """``PTZSlam`` with no device runs on the card; without CUDA it raises
+    rather than falling back to the CPU."""
+    cfg, intr = port_cfg(small_cfg()), port_intr(render(1, seed=1)[2])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tslam.PTZSlam(cfg, intr)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert tslam.PTZSlam(cfg, intr).device == torch.device("cuda")
+    assert tslam.PTZSlam(cfg, intr, device="cpu").device == torch.device("cpu")
+
+
+def test_numpy_and_host_inputs_match_the_tensor_run():
+    """numpy frames, features, pose and masks go through ``device="cpu"``
+    and give bitwise the run of the same CPU tensors."""
+    imgs, cams, intr = render(FRAMES, seed=1)
+    imgs = imgs[:8]
+    frames = t(imgs)
+    runs = []
+    for as_numpy in (False, True):
+        slam = tslam.PTZSlam(port_cfg(small_cfg()), port_intr(intr), device="cpu")
+        feats = tfront.extract_features(frames[0], slam.cfg)
+        if as_numpy:
+            state = slam.init(*(n(v) for v in feats), np.asarray(cams[0]))
+            out = slam.run_segment_pixels(state, imgs[1:], masks=np.ones(imgs[1:].shape, bool))
+        else:
+            state = slam.init(*feats, cams[0])
+            out = slam.run_segment_pixels(state, frames[1:])
+        runs.append(out)
+    (s_t, i_t), (s_n, i_n) = runs
+    assert not n(i_t.lost).any()
+    for a, b in zip(i_t, i_n):
+        np.testing.assert_array_equal(n(a), n(b))
+    np.testing.assert_array_equal(n(s_t.ekf.cam), n(s_n.ekf.cam))

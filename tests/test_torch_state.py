@@ -265,7 +265,7 @@ def test_keyframe_reloc_mode_rebuilds_the_filter(shared):
     dispatches to the nearest-keyframe backend in both packages."""
     cfg, intr, imgs, cams, host, jstate = shared
     cfg = cfg.replace(reloc_mode="keyframe")
-    assert tslam.PTZSlam(port_cfg(cfg), port_intr(intr)).cfg.reloc_mode == "keyframe"
+    assert tslam.PTZSlam(port_cfg(cfg), port_intr(intr), device="cpu").cfg.reloc_mode == "keyframe"
     xy, desc, valid = j_extract(jnp.asarray(imgs[15]), cfg, use_pallas=False, focal=jnp.asarray(cams[15][2]))
     reloc_j = jax.jit(partial(jslam._relocalize, cfg=cfg, intr=intr))
     ref_state, ref_info = jax.device_get(reloc_j(jstate._replace(lost=jnp.asarray(True)), xy, desc, valid))
