@@ -1,6 +1,7 @@
 """ptzjax_torch — the PyTorch + CUDA (Hopper) port of ptzjax.
 
-The from-pixels SLAM main path and relocalization in plain PyTorch, with
+The from-pixels SLAM loop (re-detect and KLT mode), relocalization,
+whole-map BA, checkpoints and the run report in plain PyTorch, with
 the four kernels they reach (Harris+NMS detection, the descriptor window
 gather, the fused descriptor matcher and the EKF innovation Cholesky)
 written by hand in CUDA C++ under ``csrc/``. A CPU tensor takes each kernel's plain

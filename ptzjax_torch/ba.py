@@ -1,6 +1,6 @@
 """Bundle adjustment: Levenberg-Marquardt with the ray-landmark Schur
-complement. Port of the parts of ``ptzjax/ba.py`` that ``ba.run`` reaches
-(the component-wise fast path).
+complement. Port of ``ptzjax/ba.py``'s ``run`` (the component-wise fast
+path) and its Huber-IRLS ``run_robust``; the sharded path is not here.
 
 Cameras are 3-vectors (pan, tilt, focal), rays 2-vectors; rays are
 eliminated with closed-form 2x2 inverses and the small dense (3K x 3K)
@@ -301,3 +301,36 @@ def run(prob: BAProblem, intr: Intrinsics, cfg: SLAMConfig) -> BAResult:
         iterations=lm.iterations,
         accepted=lm.accepted,
     )
+
+
+def huber_factors(cams, rays, prob: BAProblem, intr: Intrinsics, huber_px: float) -> torch.Tensor:
+    """(M, C) Huber IRLS factors from the current residual norms: 1 inside
+    ``huber_px``, sqrt(huber/|r|) beyond (0 for padding), so an outlier's
+    squared term has linear, not quadratic, influence."""
+    pre = precompute(prob)
+    *_, w, r0, r1 = _projection_comps(cams, rays, pre, intr)
+    rn = torch.sqrt(r0 * r0 + r1 * r1) / w.clamp_min(1e-9)     # unweighted |r|
+    wh = torch.sqrt((huber_px / rn.clamp_min(1e-9)).clamp(max=1.0))
+    return torch.where(w > 0, wh, 0.0).T                       # (M, C)
+
+
+def run_robust(prob: BAProblem, intr: Intrinsics, cfg: SLAMConfig, rounds: int | None = None) -> BAResult:
+    """Huber-IRLS robust BA: ``rounds`` (default ``cfg.ba_irls_rounds``)
+    times, reweight every observation by the Huber factor
+    (``cfg.ba_huber_px``) of its residual at the current parameters, then run
+    the LM solve from them. The first weights come from the initial
+    parameters. ``initial_cost`` is the first round's starting cost, ``cost``
+    the last round's final cost under its own weights. rounds=0 is ``run``."""
+    rounds = cfg.ba_irls_rounds if rounds is None else rounds
+    if rounds <= 0:
+        return run(prob, intr, cfg)
+    base_w = prob.obs_w
+    init_cost = None
+    for _ in range(rounds):
+        wh = huber_factors(prob.cams, prob.rays, prob._replace(obs_w=base_w), intr, cfg.ba_huber_px)
+        prob = prob._replace(obs_w=base_w * wh)
+        res = run(prob, intr, cfg)
+        if init_cost is None:
+            init_cost = res.initial_cost
+        prob = prob._replace(cams=res.cams, rays=res.rays)
+    return res._replace(initial_cost=init_cost)

@@ -359,3 +359,15 @@ def build_ba_problem(
         cams=kf.poses, rays=rays.rays, obs_pix=obs_pix, obs_cam=obs_cam, obs_w=obs_w,
         cam_free=cam_free,
     )
+
+
+def apply_ba_result(
+    kf: KeyframeStore, rays: RayStore, cams, new_rays, obs_w
+) -> tuple[KeyframeStore, RayStore]:
+    """Write BA-refined poses and rays back into the stores. Rays with no BA
+    observation (row weight 0) and invalid keyframes keep their values."""
+    observed = obs_w.sum(1) > 0
+    return (
+        kf._replace(poses=torch.where(kf.valid[:, None], cams, kf.poses)),
+        rays._replace(rays=torch.where(observed[:, None], new_rays, rays.rays)),
+    )

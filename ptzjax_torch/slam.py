@@ -1,5 +1,6 @@
 """Online PTZ-SLAM loop: tracking, map growth, keyframes, relocalization and
-windowed BA. Port of ``ptzjax/slam.py`` (re-detect mode).
+windowed BA, from re-detected or KLT-tracked features; whole-map BA. Port
+of ``ptzjax/slam.py`` (not the forest reloc bridge).
 
 Per-frame flow: predict -> project active slots -> gated descriptor
 re-match -> pan-tilt consensus -> joint EKF update -> slot lifecycle (retire,
@@ -25,7 +26,7 @@ from ptzjax_torch import mapstore
 from ptzjax_torch import match as matchlib
 from ptzjax_torch import reloc as reloclib
 from ptzjax_torch.config import SLAMConfig
-from ptzjax_torch.frontend import extract_features
+from ptzjax_torch.frontend import extract_features, track_features
 from ptzjax_torch.geometry import Intrinsics, back_project_pixels, in_view_mask, project_rays
 
 
@@ -81,16 +82,9 @@ class PTZSlam:
     """
 
     def __init__(self, cfg: SLAMConfig, intr: Intrinsics, device=None):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "PTZSlam: no CUDA device; the port runs on the card by default. "
-                    "Pass device='cpu' to run on the CPU."
-                )
-            device = "cuda"
         self.cfg = cfg
         self.intr = intr
-        self.device = torch.device(device)
+        self.device = _device.resolve(device)
 
     def init(self, xy, desc, valid, pose0) -> SlamState:
         """First-frame bootstrap from a known pose. Resolves
@@ -148,6 +142,32 @@ class PTZSlam:
         return _run_segment_pixels(
             state, imgs, masks, frame_ok, cfg=self.cfg, intr=self.intr, device=self.device
         )
+
+    def run_segment_pixels_klt(
+        self, state: SlamState, imgs, prev_img, prev_xy, prev_valid, frame_ok=None, masks=None,
+    ) -> tuple[SlamState, FrameInfo, torch.Tensor, torch.Tensor]:
+        """KLT-mode from-pixels chunk: LK flow carries the keypoint table from
+        frame to frame, fresh detections refill the dead rows. Seed the carry
+        with the previous chunk's last frame and table (``prev_img``,
+        ``prev_xy``, ``prev_valid``; for a first chunk, the ``init`` frame
+        and its features). ``masks`` (T, H, W) bool restricts the refill
+        detections; ``frame_ok`` (T,) marks real frames (a False frame passes
+        the state and the carry through). Inputs move to the device as in
+        ``run_segment_pixels``.
+
+        Returns (state, infos stacked over T, last_xy, last_valid): the
+        table of the last real frame, to seed the next chunk."""
+        return _run_segment_pixels_klt(
+            state, imgs, frame_ok, prev_img, prev_xy, prev_valid, masks,
+            cfg=self.cfg, intr=self.intr, device=self.device,
+        )
+
+    def bundle_adjust(self, state: SlamState) -> tuple[SlamState, dict[str, Any]]:
+        """BA over the whole map (all keyframes, robust when
+        ``cfg.ba_huber_px > 0``), written back into the stores. The two costs
+        are the one host read."""
+        state, cost0, cost1 = _run_ba(state, cfg=self.cfg, intr=self.intr)
+        return state, {"ba_cost_before": float(cost0), "ba_cost_after": float(cost1)}
 
 
 def _bootstrap(state: SlamState, xy, desc, valid, *, cfg, intr) -> SlamState:
@@ -545,21 +565,63 @@ def _run_segment_pixels(state: SlamState, imgs, masks, frame_ok, *, cfg, intr, d
     back to the bootstrap f_ref."""
     t = imgs.shape[0]
     ok = _frame_flags(frame_ok, t)
-    f_ref = cfg.descriptor_f_ref if cfg.descriptor_f_ref > 0 else 1000.0
     infos = []
     for i in range(t):
         if not ok[i]:
             infos.append(_skip_info(state))
             continue
-        f_est = state.ekf.pose[2]
-        f_safe = torch.where(torch.isfinite(f_est) & (f_est > 1.0), f_est, f_ref)
         mask = None if masks is None else torch.as_tensor(masks[i], device=device)
         xy, desc, valid = extract_features(
-            torch.as_tensor(imgs[i], device=device), cfg, mask=mask, focal=f_safe
+            torch.as_tensor(imgs[i], device=device), cfg, mask=mask, focal=_safe_focal(state, cfg)
         )
         state, info = _frame_step(state, xy, desc, valid, cfg=cfg, intr=intr)
         infos.append(info)
     return state, _stack(infos)
+
+
+def _safe_focal(state: SlamState, cfg) -> torch.Tensor:
+    """The live focal estimate for descriptor scaling, sanitized: a
+    non-finite or non-positive focal falls back to the bootstrap f_ref."""
+    f_ref = cfg.descriptor_f_ref if cfg.descriptor_f_ref > 0 else 1000.0
+    f_est = state.ekf.pose[2]
+    return torch.where(torch.isfinite(f_est) & (f_est > 1.0), f_est, f_ref)
+
+
+def _run_segment_pixels_klt(
+    state: SlamState, imgs, frame_ok, prev_img, prev_xy, prev_valid, masks, *, cfg, intr, device
+):
+    """KLT mode, frame by frame: the previous frame and keypoint table ride
+    the carry; ``track_features`` moves the table, refills it and describes
+    it; a False ``frame_ok`` frame passes state and carry through."""
+    ok = _frame_flags(frame_ok, imgs.shape[0])
+    pimg, pxy, pvalid = (torch.as_tensor(v, device=device) for v in (prev_img, prev_xy, prev_valid))
+    infos = []
+    for i in range(len(ok)):
+        if not ok[i]:
+            infos.append(_skip_info(state))
+            continue
+        img = torch.as_tensor(imgs[i], device=device)
+        mask = None if masks is None else torch.as_tensor(masks[i], device=device)
+        xy, desc, valid, _ = track_features(
+            pimg, img, pxy, pvalid, cfg, mask=mask, focal=_safe_focal(state, cfg)
+        )
+        state, info = _frame_step(state, xy, desc, valid, cfg=cfg, intr=intr)
+        infos.append(info)
+        pimg, pxy, pvalid = img, xy, valid
+    return state, _stack(infos), pxy, pvalid
+
+
+def _run_ba(state: SlamState, *, cfg, intr):
+    """Whole-map BA: every keyframe, the first one frozen as the gauge;
+    Huber IRLS when ``cfg.ba_huber_px > 0``. Returns (state, initial cost,
+    final cost)."""
+    prob = mapstore.build_ba_problem(state.kf, state.rays, max_views_per_ray=cfg.ba_max_views_per_ray)
+    if cfg.ba_huber_px > 0:
+        res = balib.run_robust(prob, intr, cfg)
+    else:
+        res = balib.run(prob, intr, cfg)
+    kf, rays = mapstore.apply_ba_result(state.kf, state.rays, res.cams, res.rays, prob.obs_w)
+    return state._replace(kf=kf, rays=rays), res.initial_cost, res.cost
 
 
 def _info_dict(h: FrameInfo, k: int | None) -> dict[str, Any]:

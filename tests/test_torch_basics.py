@@ -24,12 +24,21 @@ torch.set_num_threads(2)
 
 class TestPackage:
     def test_import_pulls_in_no_jax(self):
+        """Every module of the package, found by walking it (not a hand-kept
+        list), imports without pulling in jax or the JAX package."""
         code = (
-            "import sys, ptzjax_torch, ptzjax_torch.convert, ptzjax_torch.kernels.harris_nms, "
-            "ptzjax_torch.kernels.window_gather; "
-            "assert 'jax' not in sys.modules and 'ptzjax' not in sys.modules"
+            "import importlib, pkgutil, sys, ptzjax_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(ptzjax_torch.__path__, 'ptzjax_torch.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ptzjax'))\n"
+            "assert not bad, bad\n"
+            "print(' '.join(names))\n"
         )
-        subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+        out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120, capture_output=True, text=True)
+        names = set(out.stdout.split())
+        for mod in ("checkpoint", "eval", "kernels.flow", "convert", "kernels.harris_nms", "kernels.window_gather"):
+            assert f"ptzjax_torch.{mod}" in names
 
 
 class TestConfig:

@@ -12,12 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+from ptzjax_torch import checkpoint as tckpt
 from ptzjax_torch import synth
 from ptzjax_torch.config import SLAMConfig
 from ptzjax_torch.frontend import extract_features
 from ptzjax_torch.geometry import Intrinsics
 from ptzjax_torch.kernels import cholesky as tch
 from ptzjax_torch.kernels import descriptor as tdesc
+from ptzjax_torch.kernels import flow as tflow
 from ptzjax_torch.kernels import harris_nms as thn
 from ptzjax_torch.kernels import match as tkm
 from ptzjax_torch.kernels import window_gather as twg
@@ -132,6 +134,95 @@ def test_gather_windows_bitwise(cuda_device, win):
     assert torch.equal(
         twg.gather_windows(pimg, far, -far, win), twg.gather_windows_plain(pimg, far, -far, win)
     )
+
+
+@pytest.mark.parametrize("side", [16, 24])
+def test_gather_windows_lk_sides_bitwise(cuda_device, side):
+    """The LK template (side 16) and search (side 24) windows at level 0 and
+    at a coarse level, through ``flow._gather`` as LK calls it, with starts
+    past both edges."""
+    imgs, _, _ = _render(1)
+    level0 = torch.from_numpy(imgs[0]).to(cuda_device)
+    for img in (level0, tflow.build_pyramid(level0, 4)[3]):
+        pimg = tflow._edge_pad(img, side)
+        hp, wp = pimg.shape
+        rng = np.random.default_rng(side)
+        ys = torch.from_numpy(rng.integers(-5, hp - side + 5, 512).astype(np.int32)).to(cuda_device)
+        xs = torch.from_numpy(rng.integers(-5, wp - side + 5, 512).astype(np.int32)).to(cuda_device)
+        before = twg.launches
+        got = tflow._gather(pimg, ys, xs, side)
+        assert twg.launches == before + 1 and got.shape == (512, side, side)
+        assert torch.equal(got, twg.gather_windows_plain(pimg, ys, xs, side - 1))
+
+
+def _lk_pair(device):
+    imgs, _, _ = _render(30)
+    frames = torch.from_numpy(imgs[:2]).to(device)
+    kp = detect_keypoints(frames[0], 160, threshold=1e-4)
+    return frames[0], frames[1], kp.xy, kp.valid
+
+
+def test_lk_track_on_card_matches_cpu(cuda_device):
+    """The card (kernel B, 10 gathers a call at 4 levels with the backward
+    check) against the CPU (plain gather): ``tracked`` equal, ``xy`` within
+    1e-3 px on tracked rows."""
+    before = twg.launches
+    got = tflow.lk_track(*_lk_pair(cuda_device))
+    assert twg.launches == before + 2 * 4 + 2
+    ref = tflow.lk_track(*_lk_pair("cpu"))
+    tracked = ref.tracked
+    assert int(tracked.sum()) > 100
+    assert torch.equal(got.tracked.cpu(), tracked)
+    torch.testing.assert_close(got.xy.cpu()[tracked], ref.xy[tracked], rtol=0, atol=1e-3)
+
+
+def _klt_run(dev, imgs, cams, intr):
+    cfg = SLAMConfig(
+        image_width=W, image_height=H, max_keypoints=160, max_rays=96, max_map_rays=1024,
+        max_keyframes=16, min_inliers=10, keyframe_interval=6,
+    )
+    slam = PTZSlam(cfg, intr, device=dev)
+    frames = torch.from_numpy(imgs).to(dev)
+    xy0, d0, v0 = extract_features(frames[0], slam.cfg)
+    state = slam.init(xy0, d0, v0, cams[0])
+    before = twg.launches
+    state, infos, xy, valid = slam.run_segment_pixels_klt(state, frames[1:], frames[0], xy0, v0)
+    return slam, state, infos, twg.launches - before
+
+
+def test_klt_slice_on_card_matches_cpu(cuda_device):
+    """KLT mode on the card (kernels A-D) and on the CPU: the same flags,
+    poses within 5e-4 rad and 2 px, and 11 window gathers a frame."""
+    imgs, cams, intr = _render(30)
+    imgs = imgs[:14]
+    _, _, i_cpu, _ = _klt_run("cpu", imgs, cams, intr)
+    _, _, i_gpu, gathers = _klt_run(cuda_device, imgs, cams, intr)
+    assert gathers == 11 * (len(imgs) - 1)
+    for name in ("lost", "event", "keyframe"):
+        np.testing.assert_array_equal(getattr(i_gpu, name).cpu().numpy(), getattr(i_cpu, name).numpy())
+    assert int(i_gpu.keyframe.sum()) >= 2 and not bool(i_gpu.lost.any())
+    dpose = np.abs(i_gpu.pose.cpu().numpy() - i_cpu.pose.numpy())
+    assert dpose[:, :2].max() < 5e-4 and dpose[:, 2].max() < 2.0
+
+
+def test_checkpoint_round_trip_of_a_card_state(cuda_device, tmp_path):
+    """A state on the card saves and loads back bitwise, onto the device of
+    the ``like`` tree's leaves (the card, or the CPU)."""
+    imgs, cams, intr = _render(30)
+    slam, state, _, _ = _klt_run(cuda_device, imgs[:5], cams, intr)
+    path = str(tmp_path / "state.npz")
+    tckpt.save_pytree(path, state)
+    frame0 = torch.from_numpy(imgs[0])
+    like = slam.init(*extract_features(frame0.to(cuda_device), slam.cfg), cams[0])
+    back = tckpt.load_pytree(path, like)
+    leaves, back_leaves = tckpt.tree_flatten(state)[0], tckpt.tree_flatten(back)[0]
+    assert len(leaves) == len(back_leaves) == 24
+    for a, b in zip(leaves, back_leaves):
+        assert b.device == a.device and torch.equal(a, b)
+    host = PTZSlam(slam.cfg, intr, device="cpu")
+    on_cpu = tckpt.load_pytree(path, host.init(*extract_features(frame0, host.cfg), cams[0]))
+    for a, b in zip(leaves, tckpt.tree_flatten(on_cpu)[0]):
+        assert b.device.type == "cpu" and torch.equal(a.cpu(), b)
 
 
 def test_wrappers_reject_bad_inputs(cuda_device):

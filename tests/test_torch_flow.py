@@ -1,0 +1,183 @@
+"""The port's pyramidal LK (``ptzjax_torch/kernels/flow.py``) against the JAX
+package's on the CPU, on tests/test_flow.py's scenes, and that file's
+accuracy bars held by the port alone.
+
+Tolerances: pyramid levels within 1e-6 (fp32 blur and pool, sums in
+another order); ``tracked`` equal and ``xy`` within 1e-3 px on tracked rows
+(the Newton steps' fp32 products are contracted in another order than
+XLA's, and the loop amplifies last-bit differences a little)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ptzjax import synth
+from ptzjax.geometry import Intrinsics, back_project_pixels, project_rays
+from ptzjax.kernels.detect import detect_keypoints
+from ptzjax.kernels.flow import build_pyramid as j_pyramid
+from ptzjax.kernels.flow import lk_track as j_lk
+from ptzjax_torch.kernels import flow as tflow
+from ptzjax_torch.kernels import window_gather as twg
+from tests._torch_port import n, t
+
+torch.set_num_threads(2)
+
+
+def _textured_image(h, w, seed=0):
+    return synth.make_panorama(seed=seed).tex[:h, :w].astype(np.float32)
+
+
+def _translation_pair():
+    """tests/test_flow.py's subpixel translation (7.3, -4.6) px, 240x320."""
+    pano = synth.make_panorama(seed=3)
+    h, w = 240, 320
+    y, x = np.mgrid[0:h, 0:w]
+
+    def sample(xs, ys):
+        x0, y0 = np.floor(xs).astype(int), np.floor(ys).astype(int)
+        fx, fy = (xs - x0).astype(np.float32), (ys - y0).astype(np.float32)
+        tex = pano.tex
+        return (
+            tex[y0, x0] * (1 - fy) * (1 - fx) + tex[y0, x0 + 1] * (1 - fy) * fx
+            + tex[y0 + 1, x0] * fy * (1 - fx) + tex[y0 + 1, x0 + 1] * fy * fx
+        ).astype(np.float32)
+
+    return sample(x + 100.0, y + 100.0), sample(x + 107.3, y + 95.4)
+
+
+def _render_pair(dpan=0.004, dtilt=-0.002, df=5.0, seed=1):
+    """tests/test_flow.py's PTZ step, 640x360."""
+    pano = synth.make_panorama(seed=seed)
+    intr = Intrinsics.create(320.0, 180.0)
+    cam0 = np.array([0.05, -0.05, 1600.0], np.float32)
+    cam1 = cam0 + np.array([dpan, dtilt, df], np.float32)
+    return synth.render_image(pano, cam0, intr, 640, 360), synth.render_image(pano, cam1, intr, 640, 360), cam0, cam1, intr
+
+
+def _keypoints(img, k):
+    kp = detect_keypoints(jnp.asarray(img), max_keypoints=k, threshold=1e-4, use_pallas=False)
+    return np.asarray(kp.xy), np.asarray(kp.valid)
+
+
+def _both(img0, img1, xy, valid, **kw):
+    ref = j_lk(jnp.asarray(img0), jnp.asarray(img1), jnp.asarray(xy), jnp.asarray(valid), **kw)
+    got = tflow.lk_track(t(img0), t(img1), t(xy), t(valid), **kw)
+    return ref, got
+
+
+def _assert_parity(ref, got):
+    np.testing.assert_array_equal(n(got.tracked), n(ref.tracked))
+    tr = n(ref.tracked)
+    np.testing.assert_allclose(n(got.xy)[tr], n(ref.xy)[tr], atol=1e-3, rtol=0)
+    np.testing.assert_array_equal(n(got.xy)[~tr], n(ref.xy)[~tr])   # untracked rows keep their input
+
+
+@pytest.mark.parametrize("levels", [1, 3, 4])
+def test_pyramid_levels_match(levels):
+    img = _textured_image(121, 163)               # odd sizes: the crop before the pool
+    ref = j_pyramid(jnp.asarray(img), levels)
+    got = tflow.build_pyramid(t(img), levels)
+    assert [tuple(g.shape) for g in got] == [r.shape for r in ref]
+    for r, g in zip(ref, got):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(n(g), n(r), atol=1e-6, rtol=0)
+    const = tflow.build_pyramid(torch.full((64, 64), 3.5), 3)
+    for p in const:
+        np.testing.assert_allclose(n(p), 3.5, rtol=1e-6)
+
+
+def test_translation_matches_and_is_subpixel():
+    img0, img1 = _translation_pair()
+    xy, valid = _keypoints(img0, 64)
+    ref, got = _both(img0, img1, xy, valid)
+    _assert_parity(ref, got)
+    tracked = n(got.tracked) & valid
+    assert tracked.sum() >= 30
+    err = np.abs(n(got.xy)[tracked] - xy[tracked] - np.array([-7.3, 4.6]))
+    assert np.median(err) < 0.1
+
+
+def test_ptz_pair_matches_and_follows_the_geometry():
+    img0, img1, cam0, cam1, intr = _render_pair()
+    xy, valid = _keypoints(img0, 128)
+    ref, got = _both(img0, img1, xy, valid)
+    _assert_parity(ref, got)
+    np.testing.assert_allclose(n(got.residual), n(ref.residual), atol=1e-4)
+    gt_xy = np.asarray(project_rays(cam1, back_project_pixels(cam0, jnp.asarray(xy), intr), intr))
+    in_view = (gt_xy[:, 0] > 8) & (gt_xy[:, 0] < 632) & (gt_xy[:, 1] > 8) & (gt_xy[:, 1] < 352)
+    tracked = n(got.tracked) & valid & in_view
+    assert tracked.sum() >= 0.6 * (valid & in_view).sum()
+    err = np.linalg.norm(n(got.xy)[tracked] - gt_xy[tracked], axis=-1)
+    assert np.median(err) < 0.3 and np.mean(err) < 1.0
+
+
+def test_out_of_view_points_rejected():
+    img0, img1, *_ = _render_pair(dpan=0.012, dtilt=0.0, df=0.0)
+    xy = np.array([[3.0, 50.0], [5.0, 200.0], [2.0, 300.0], [320.0, 180.0]], np.float32)
+    ref, got = _both(img0, img1, xy, np.ones(4, bool))
+    _assert_parity(ref, got)
+    ok = n(got.tracked)
+    assert ok[3] and not ok[:3].any()
+    assert abs(float(n(got.xy)[3, 0]) - 320.0 + 0.012 * 1600.0) < 0.5
+
+
+def test_invalid_rows_and_flat_region():
+    img = _textured_image(120, 160)
+    xy = np.array([[40.0, 40.0], [80.0, 60.0]], np.float32)
+    ref, got = _both(img, img, xy, np.array([True, False]))
+    _assert_parity(ref, got)
+    assert n(got.tracked).tolist() == [True, False]
+    np.testing.assert_allclose(n(got.xy)[0], xy[0], atol=1e-3)
+
+    flat = np.zeros((96, 128), np.float32)
+    ref, got = _both(flat, flat, np.array([[64.0, 48.0]], np.float32), np.array([True]))
+    _assert_parity(ref, got)
+    assert not bool(got.tracked[0])
+
+
+def test_non_finite_positions_do_not_crash_and_are_not_tracked():
+    """A NaN or infinite position reaches the integer casts and the clamped
+    gathers; it comes back untracked, and the finite rows are unaffected."""
+    img0, img1, *_ = _render_pair()
+    xy, valid = _keypoints(img0, 16)
+    bad = xy.copy()
+    bad[:3] = [[np.nan, 40.0], [np.inf, -np.inf], [1e9, -1e9]]
+    got = tflow.lk_track(t(img0), t(img1), t(bad), t(valid))
+    clean = tflow.lk_track(t(img0), t(img1), t(xy), t(valid))
+    assert not n(got.tracked)[:3].any()
+    np.testing.assert_array_equal(n(got.tracked)[3:], n(clean.tracked)[3:])
+    np.testing.assert_array_equal(n(got.xy)[3:], n(clean.xy)[3:])
+
+
+def test_fb_check_off_and_levels_options_match():
+    img0, img1, *_ = _render_pair()
+    xy, valid = _keypoints(img0, 96)
+    for kw in (dict(fb_check=False), dict(levels=2, iters=5, patch=9)):
+        ref, got = _both(img0, img1, xy, valid, **kw)
+        _assert_parity(ref, got)
+
+
+def test_cpu_tensors_take_the_plain_gather():
+    """On the CPU every window goes through the plain gather: no kernel
+    launch is counted, and the result lies on the CPU."""
+    img0, img1, *_ = _render_pair()
+    xy, valid = _keypoints(img0, 32)
+    before = twg.launches
+    got = tflow.lk_track(t(img0), t(img1), t(xy), t(valid))
+    assert twg.launches == before
+    assert got.xy.device.type == "cpu" and got.tracked.dtype == torch.bool
+
+
+def test_numpy_inputs_run_on_the_card_by_default(monkeypatch):
+    """numpy inputs with no device go to the card; without CUDA that raises
+    rather than falling back to the CPU. ``device="cpu"`` asks for the CPU."""
+    img0, img1, *_ = _render_pair()
+    xy, valid = _keypoints(img0, 8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tflow.lk_track(img0, img1, xy, valid)
+    got = tflow.lk_track(img0, img1, xy, valid, device="cpu")
+    ref = tflow.lk_track(t(img0), t(img1), t(xy), t(valid))
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
