@@ -68,18 +68,38 @@ Phases, each of which raises (non-zero exit) on failure:
    ``load_pytree`` into a fresh state, frames 97 on: flags and poses
    bitwise those of the uninterrupted 4b run.
 
+5. the CLI (``ptzjax_torch.run``) on the card, each run with the counters
+   set to 0 just before it and read just after: (a) ``run.main`` in-process
+   on ``--synthetic-images`` at 1280x720, 192 frames, bench.py's trajectory
+   flags, the SLAMConfig defaults, ``--ba`` and ``--checkpoint-every 64``:
+   no lost frame, pan MAE < 3e-3 rad, 191 lines of ``frames.jsonl``, the
+   checkpoints, the BA cost not raised, the counters equal to the call
+   sites' counts for its records, and its fps; the same in ``--klt`` mode
+   at 96 frames. (b) ``--movers 8`` (masked) at 720p, 96 frames: no lost
+   frame, every detection launch carrying its mask. (c) The 4c blackout
+   sequence through the CLI's loop (``run.run_sequence``) with ``--reloc
+   forest``: keyframes train the forest online, the blackout goes lost,
+   the forest relocalizes on the host within 2 frames of the blackout's
+   end, no frame is lost from 15 frames after, pan MAE < 3e-3 rad after.
+   (d) ``python3 -m ptzjax_torch.run --synthetic --frames 30`` in a
+   subprocess with no ``--device``: it runs on ``cuda`` and exits 0.
+
 The line before the last is one JSON object with the kernels' numbers
-(``launches`` from run 4b, ``launches_by_path`` from 4b, both 4c runs and
-4e); the last line is ``{"ok": true, "device": {...}}``.
+(``launches`` from run 4b, ``launches_by_path`` from 4b, both 4c runs, 4e
+and the CLI runs of 5a-5c); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import importlib
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -620,6 +640,7 @@ COUNTER_NAMES = ("harris_nms", "gather_windows", "match_scores", "cholesky")
 def reset_counts() -> None:
     for mod in KERNEL_MODULES:
         importlib.import_module(f"ptzjax_torch.kernels.{mod}").launches = 0
+    importlib.import_module("ptzjax_torch.kernels.harris_nms").masked_launches = 0
 
 
 def read_counts() -> dict:
@@ -637,9 +658,18 @@ def expected_counts(infos, klt_levels: int | None = None) -> dict:
     descriptors on every later frame; the matcher on every tracked frame,
     every keyframe insert (the bootstrap's included) and every
     relocalization frame; the Cholesky on every tracked frame."""
-    event = infos.event.cpu().numpy()
+    return _expected(infos.event.cpu().numpy(), infos.keyframe.cpu().numpy(), klt_levels)
+
+
+def expected_from_records(records: list, klt_levels: int | None = None) -> dict:
+    """``expected_counts`` for the CLI's per-frame records."""
+    event = np.array([0 if r["event"] == "track" else 1 for r in records])
+    return _expected(event, np.array([r["keyframe"] for r in records]), klt_levels)
+
+
+def _expected(event: np.ndarray, keyframe: np.ndarray, klt_levels: int | None) -> dict:
     tracked, relocs = int((event == 0).sum()), int((event == 1).sum())
-    inserts = int(infos.keyframe.sum())
+    inserts = int(keyframe.sum())
     frames = len(event) + 1
     gathers = frames if klt_levels is None else 1 + (2 * klt_levels + 3) * (frames - 1)
     return {
@@ -973,6 +1003,149 @@ def resume_phase(imgs: torch.Tensor, cams, intr, infos_full, card: str) -> None:
     )
 
 
+# bench.py's trajectory flags (its sequence's period is 120 * 1.6 frames)
+BENCH_FLAGS = ("--width", "1280", "--height", "720", "--f0", "2000", "--f-amp", "250", "--pan-amp", "0.12", "--period", "192")
+
+
+def cli_run(argv: list[str]):
+    """``run.main(argv)`` in this process, its printout kept for the caller:
+    (RunResult, the launch counts of the run, host seconds, stdout)."""
+    from ptzjax_torch import run
+
+    out = io.StringIO()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = run.main(argv)
+    torch.cuda.synchronize()
+    return res, read_counts(), time.perf_counter() - t0, out.getvalue()
+
+
+def cli_phase(tmp: str, card: str) -> dict:
+    """5a: the CLI at 720p, 192 frames, with --ba and checkpoints; then the
+    same in KLT mode at 96 frames. Returns the launch counts by path."""
+    from ptzjax_torch.config import SLAMConfig
+
+    by_path = {}
+    for name, frames, extra, klt_levels in (
+        ("cli", 192, ("--ba", "--checkpoint-every", "64"), None),
+        ("cli_klt", 96, ("--klt",), SLAMConfig().flow_levels),
+    ):
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, name)
+        res, counts, wall, _ = cli_run(["--synthetic-images", "--frames", str(frames), *BENCH_FLAGS, *extra, "--out", out])
+        recs, summary = res.records, res.summary
+        traj = np.load(os.path.join(out, "trajectory.npz"))
+        mae = float(np.abs(traj["pose"][:, 0] - traj["gt"][:, 0]).mean())
+        want = expected_from_records(recs, klt_levels)
+        with open(os.path.join(out, "frames.jsonl")) as f:
+            lines = sum(1 for _ in f)
+        print(
+            f"5a {name}: {frames} frames 720p: lost {summary['frames_lost']}, keyframes {summary['keyframes']}, "
+            f"pan MAE {mae} rad ({summary['pan_mae_deg']} deg), reprojection RMSE "
+            f"{summary['reprojection_rmse_px']} px; {lines} lines of frames.jsonl; launches {counts}"
+        )
+        check(summary["frames_lost"] == 0, f"5a {name}: {summary['frames_lost']} lost frames")
+        check(mae < 3e-3 and summary["pan_mae_deg"] < np.rad2deg(3e-3), f"5a {name}: pan MAE {mae} rad")
+        check(lines == frames - 1 and len(recs) == frames - 1, f"5a {name}: {lines} lines of frames.jsonl")
+        check(counts == want, f"5a {name}: launches {counts}, call sites give {want}")
+        if res.ba is not None:
+            ckpts = sorted(f for f in os.listdir(out) if f.startswith("state_"))
+            check(ckpts == ["state_000064.npz", "state_000128.npz"], f"5a {name}: checkpoints {ckpts}")
+            before, after = res.ba["ba_cost_before"], res.ba["ba_cost_after"]
+            check(np.isfinite(after) and after <= before, f"5a {name}: BA cost {before} -> {after}")
+            print(f"5a {name}: checkpoints {ckpts}; --ba cost {before:.3f} -> {after:.3f} px^2")
+        print(
+            f"5a {name}: summary fps {summary['fps']:.2f} (the loop, {frames - 1} frames) [{card}]; "
+            f"phase {time.perf_counter() - t0:.1f} s (main {wall:.1f} s, rendering included)"
+        )
+        by_path[name] = counts
+    return by_path
+
+
+def movers_phase(tmp: str, card: str) -> dict:
+    """5b: --movers 8 (masked) at 720p, 96 frames."""
+    from ptzjax_torch.kernels import harris_nms
+
+    t0 = time.perf_counter()
+    res, counts, _, _ = cli_run(
+        ["--synthetic-images", "--movers", "8", "--frames", "96", *BENCH_FLAGS, "--out", os.path.join(tmp, "movers")]
+    )
+    summary, masked = res.summary, harris_nms.masked_launches
+    want = expected_from_records(res.records)
+    print(
+        f"5b movers: 8 blobs masked, {summary['mover_pixel_frac_mid']} of the mid frame's pixels; lost "
+        f"{summary['frames_lost']}, pan MAE {summary['pan_mae_deg']} deg; detection launches {counts['harris_nms']}, "
+        f"with a mask {masked}; launches {counts}; fps {summary['fps']:.2f} [{card}]; phase {time.perf_counter() - t0:.1f} s"
+    )
+    check(summary["movers_masked"] is True and summary["frames_lost"] == 0, f"5b: {summary}")
+    check(masked == counts["harris_nms"] > 0, f"5b: {masked} of {counts['harris_nms']} detection launches masked")
+    check(counts == want, f"5b: launches {counts}, call sites give {want}")
+    return counts
+
+
+def forest_phase(imgs_np: np.ndarray, cams, intr, tmp: str, card: str) -> dict:
+    """5c: the 4c sequence (BLACKOUT zeroed) through the CLI's loop with
+    --reloc forest. Returns the launches of A and B."""
+    from ptzjax_torch import run
+
+    t0 = time.perf_counter()
+    dark = imgs_np.copy()
+    dark[BLACKOUT.start:BLACKOUT.stop] = 0.0
+    args = run.parse_args(["--synthetic-images", "--reloc", "forest", "--out", os.path.join(tmp, "forest")])
+    inputs = run.image_inputs(args, run.make_config(args), intr, cams, dark)
+    reset_counts()
+    torch.cuda.synchronize()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = run.run_sequence(args, inputs)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    recs = res.records
+    frame = np.array([r["frame"] for r in recs])
+    lost = np.array([r["lost"] for r in recs])
+    kf_before = [int(f) for f in frame[np.array([r["keyframe"] for r in recs]) & (frame < BLACKOUT.start)]]
+    recovered = [r["frame"] for r in recs if r["frame"] in res.forest_frames and r["reloc_success"]]
+    print(
+        f"5c forest, blackout {BLACKOUT.start}-{BLACKOUT.stop - 1}: keyframes inserted before it at {kf_before} "
+        f"(and the bootstrap), lost frames {frame[lost].tolist()}, forest frames {res.forest_frames}, "
+        f"recovered at {recovered[:1]}; launches A {counts['harris_nms']}, B {counts['gather_windows']}"
+    )
+    check(kf_before, "5c: no keyframe inserted before the blackout")
+    check(lost[np.isin(frame, list(BLACKOUT))].any(), "5c: no frame lost in the blackout")
+    check(recovered and recovered[0] <= BLACKOUT.stop - 1 + 2, f"5c: the forest recovered at {recovered[:1]}")
+    first = recovered[0]
+    check(res.forest_frames == list(range(res.forest_frames[0], first + 1)), f"5c: forest frames {res.forest_frames}")
+    late = frame >= first + 15
+    check(not lost[late].any(), f"5c: lost frames after recovery at {frame[late & lost]}")
+    after = [r for r in recs if r["frame"] > first and r["event"] == "track"]
+    mae = float(np.mean([abs(r["pose"][0] - cams[r["frame"], 0]) for r in after]))
+    check(mae < 3e-3, f"5c: pan MAE after recovery {mae}")
+    print(
+        f"5c forest: first recovered frame {first}, pan MAE over the {len(after)} tracked frames after it {mae} rad; "
+        f"fps {res.summary['fps']:.2f} [{card}]; phase {time.perf_counter() - t0:.1f} s"
+    )
+    return {"harris_nms": counts["harris_nms"], "gather_windows": counts["gather_windows"]}
+
+
+def module_phase(tmp: str, card: str) -> None:
+    """5d: the module entry point with no --device, in a subprocess."""
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "module")
+    proc = subprocess.run(
+        [sys.executable, "-m", "ptzjax_torch.run", "--synthetic", "--frames", "30", "--out", out],
+        capture_output=True, text=True, timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    check(proc.returncode == 0, f"5d: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    check("device: cuda" in proc.stdout, f"5d: not on cuda: {proc.stdout[:200]}")
+    with open(os.path.join(out, "summary.json")) as f:
+        summary = json.load(f)
+    print(
+        f"5d python3 -m ptzjax_torch.run --synthetic --frames 30 (no --device): exit 0 on cuda, lost "
+        f"{summary['frames_lost']}, fps {summary['fps']:.2f} [{card}]; phase {time.perf_counter() - t0:.1f} s"
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
@@ -1071,7 +1244,6 @@ def main() -> int:
     by_path["klt"] = klt_phase(imgs, cams, intr, card)
     for k in kernels:
         k["launches"] = launches[k["name"]]
-        k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
 
     # 4d. device time per frame kind (after the counted runs)
     frame_phase(imgs, cams, intr, card)
@@ -1082,6 +1254,16 @@ def main() -> int:
 
     # 4g. checkpoint at frame 96 and resume: the 4b run again
     resume_phase(imgs, cams, intr, infos, card)
+
+    # 5. the CLI: 5a (re-detect with BA and checkpoints, then KLT), 5b
+    # (movers), 5c (forest relocalization), 5d (the module entry point)
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path.update(cli_phase(tmp, card))
+        by_path["cli_movers"] = movers_phase(tmp, card)
+        by_path["cli_forest_blackout"] = forest_phase(imgs_np, cams, intr, tmp, card)
+        module_phase(tmp, card)
+    for k in kernels:
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items() if k["name"] in c}
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

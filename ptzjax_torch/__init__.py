@@ -1,7 +1,9 @@
 """ptzjax_torch — the PyTorch + CUDA (Hopper) port of ptzjax.
 
-The from-pixels SLAM loop (re-detect and KLT mode), relocalization,
-whole-map BA, checkpoints and the run report in plain PyTorch, with
+The from-pixels SLAM loop (re-detect and KLT mode), relocalization (map,
+keyframe and the native forest), whole-map BA, checkpoints, the run report
+and the experiment CLI (``python -m ptzjax_torch.run``) with its host data
+layer (synthetic sequences, annotation I/O, plots) in plain PyTorch, with
 the four kernels they reach (Harris+NMS detection, the descriptor window
 gather, the fused descriptor matcher and the EKF innovation Cholesky)
 written by hand in CUDA C++ under ``csrc/``. A CPU tensor takes each kernel's plain

@@ -26,6 +26,7 @@ from ptzjax_torch.kernels import _build
 from ptzjax_torch.kernels.detect import _NEG, _nms3, _subpixel, harris_response
 
 launches = 0   # kernel launches since the last reset (plain calls not counted)
+masked_launches = 0   # the launches among them that carried a detection mask
 
 STRIP = 56   # output columns per warp (csrc/harris_nms.cu)
 RUN = 8      # output rows per warp
@@ -152,6 +153,7 @@ def detect_maps(
         h, w, int(border), float(threshold), float(k), dev.index, stream,
     )
     _build.check(err, "detect_maps")
-    global launches
+    global launches, masked_launches
     launches += 1
+    masked_launches += mask is not None
     return sup, off, floor

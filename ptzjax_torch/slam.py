@@ -1,6 +1,7 @@
 """Online PTZ-SLAM loop: tracking, map growth, keyframes, relocalization and
-windowed BA, from re-detected or KLT-tracked features; whole-map BA. Port
-of ``ptzjax/slam.py`` (not the forest reloc bridge).
+windowed BA, from re-detected or KLT-tracked features; whole-map BA; the
+apply step of an external (forest) relocalization. Port of
+``ptzjax/slam.py``.
 
 Per-frame flow: predict -> project active slots -> gated descriptor
 re-match -> pan-tilt consensus -> joint EKF update -> slot lifecycle (retire,
@@ -168,6 +169,20 @@ class PTZSlam:
         are the one host read."""
         state, cost0, cost1 = _run_ba(state, cfg=self.cfg, intr=self.intr)
         return state, {"ba_cost_before": float(cost0), "ba_cost_after": float(cost1)}
+
+    def apply_reloc_result(self, state: SlamState, xy, desc, valid, res) -> SlamState:
+        """Apply a relocalization computed outside the loop (the forest path,
+        ``reloc_forest.relocalize_rf``): on success, re-initialize the EKF
+        around the recovered pose and seed slots by back-projecting the inlier
+        keypoints; on failure, stay lost. The host decides when to call it,
+        on a frame it already knows is lost; ``res.success`` is read once."""
+        dev = self.device
+        xy, desc, valid, pose, inl = (
+            torch.as_tensor(v, device=dev) for v in (xy, desc, valid, res.pose, res.matched_ok)
+        )
+        return _apply_external_reloc(
+            state, xy, desc, valid, pose, inl, bool(res.success), cfg=self.cfg, intr=self.intr
+        )
 
 
 def _bootstrap(state: SlamState, xy, desc, valid, *, cfg, intr) -> SlamState:
@@ -419,6 +434,27 @@ def _relocalize(state: SlamState, xy, desc, valid, *, cfg, intr):
         reloc_success=res.success,
     )
     return new_state, info
+
+
+def _apply_external_reloc(
+    state: SlamState, xy, desc, valid, pose, inlier_mask, success: bool, *, cfg, intr
+) -> SlamState:
+    """Re-init around an externally recovered pose (forest path): fresh EKF
+    at ``pose``, inlier keypoints back-projected into new slots + map rays.
+    The map/keyframe stores survive (they are the long-term memory). The
+    reference's ``lax.cond`` on ``success`` is a host branch here."""
+    if not success:
+        return state._replace(frame_idx=state.frame_idx + 1)
+    st = state._replace(
+        ekf=ekflib.init_state(pose, cfg),
+        slot_desc=torch.zeros_like(state.slot_desc),
+        lost=_scalar(False, torch.bool, xy.device),
+        frame_idx=state.frame_idx + 1,
+    )
+    # dedupe: repeated forest relocalizations must reuse the map rays they
+    # re-observe, not append clones until the store exhausts
+    st, _ = _grow_map(st, xy, desc, valid & inlier_mask, cfg=cfg, intr=intr, dedupe=True)
+    return st
 
 
 def _windowed_ba(state: SlamState, *, cfg, intr) -> SlamState:

@@ -8,6 +8,8 @@ arrays to the JAX reference (on the CPU, plain jnp paths) and to the port.
 from __future__ import annotations
 
 import dataclasses
+import fcntl
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -75,3 +77,16 @@ def texture(h=96, w=160, seed=0) -> np.ndarray:
     base = rng.normal(size=(h // 8 + 1, w // 8 + 1))
     img = np.kron(base, np.ones((8, 8)))[:h, :w]
     return smooth5_np(smooth5_np(img)).astype(np.float32)
+
+
+def reference_forest_module():
+    """``ptzjax.reloc_forest`` with its library built under an exclusive
+    lock, so test workers never load a half-written file."""
+    from ptzjax import reloc_forest
+    from ptzjax_torch.reloc_forest import BUILD_DIR
+
+    Path(BUILD_DIR).mkdir(parents=True, exist_ok=True)
+    with open(Path(BUILD_DIR) / "reference_forest.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        reloc_forest._load_lib()
+    return reloc_forest

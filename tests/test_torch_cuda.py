@@ -399,3 +399,53 @@ def test_blackout_slice_on_card_matches_cpu(cuda_device, mode):
     assert dpose[:, :2].max() < 5e-4 and dpose[:, 2].max() < 2.0
     tracked, relocs = int((e_g == 0).sum()), int((e_g == 1).sum())
     assert n_match == tracked + int(k_g.sum()) + 1 + relocs and n_chol == tracked
+
+
+def _cli(out, *argv):
+    """``ptzjax_torch.run`` in process; (records, summary, result)."""
+    import json
+    import os
+
+    from ptzjax_torch import run
+
+    res = run.main([*argv, "--out", str(out)])
+    with open(os.path.join(out, "summary.json")) as f:
+        return res.records, json.load(f), res
+
+
+def test_cli_runs_on_the_card_by_default(cuda_device, tmp_path):
+    """No --device: the loop's state lives on the card, and the per-frame
+    records match a --device cpu run of the same sequence."""
+    argv = ("--synthetic-images", "--frames", "12", "--width", "480", "--height", "270", "--chunk", "8")
+    rec_g, sum_g, res = _cli(tmp_path / "gpu", *argv)
+    rec_c, sum_c, _ = _cli(tmp_path / "cpu", *argv, "--device", "cpu")
+    assert res.state.ekf.cam.device.type == "cuda"
+    assert sorted(sum_g) == sorted(sum_c) and sum_g["frames_lost"] == sum_c["frames_lost"] == 0
+    assert [r["lost"] for r in rec_g] == [r["lost"] for r in rec_c]
+    dpose = np.abs(np.array([r["pose"] for r in rec_g]) - np.array([r["pose"] for r in rec_c]))
+    assert dpose[:, :2].max() < 5e-4 and dpose[:, 2].max() < 2.0
+
+
+def test_forest_reloc_on_card_matches_cpu(cuda_device):
+    """``relocalize_rf`` solves on the device of its inputs: the card's pose
+    agrees with the CPU's on the same forest prediction."""
+    from ptzjax_torch import features, reloc_forest
+
+    seq = synth.make_sequence(num_frames=40, num_rays=900, seed=4)
+    rng = np.random.default_rng(4)
+    d = rng.normal(size=(900, 32)).astype(np.float32)
+    seq = seq._replace(descriptors=d / np.linalg.norm(d, axis=-1, keepdims=True))
+    cfg = SLAMConfig(max_keypoints=128, kf_desc_dim=32)
+    forest = reloc_forest.RelocForest(seed=7)
+    for k in range(0, 40, 10):
+        f, ids = features.synth_features(seq, k, 128, desc_noise=0.02)
+        rays = np.where((ids >= 0)[:, None], seq.rays[np.clip(ids, 0, None)], 0.0).astype(np.float32)
+        forest.add_keyframe(f.desc, rays, valid=f.valid & (ids >= 0))
+    f, _ = features.synth_features(seq, 25, 128, desc_noise=0.02, seed=3)
+    poses = {}
+    for dev in ("cpu", cuda_device):
+        res = reloc_forest.relocalize_rf(forest, f.desc, f.xy, f.valid, seq.intr, cfg, device=dev)
+        assert bool(res.success) and res.pose.device.type == torch.device(dev).type
+        poses[str(dev)] = res.pose.cpu().numpy()
+    d = np.abs(poses["cpu"] - poses[str(cuda_device)])
+    assert d[:2].max() < 5e-4 and d[2] < 2.0
