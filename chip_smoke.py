@@ -22,7 +22,8 @@ Phases, each of which raises (non-zero exit) on failure:
    window gather, 512 windows at win 46 and 18 (descriptors) and at the LK
    shapes: sides 16 and 24 at 720p and side 24 at the 90 x 160 level;
    (c) the matcher at 512 x 256
-   gated at 60 px (tracking), 512 x
+   gated at 60 px (tracking), 512 x 512 mutual and ungated (the homography
+   baseline, frame to frame), 512 x
    2,048 (the matcher bench shape), 512 x 4,096 mutual (map relocalization)
    and 512 x 32,768 one-way (keyframe relocalization), each call exactly one
    kernel, and three calls bitwise equal at 512 x 32,768 and 512 x 256;
@@ -82,12 +83,28 @@ Phases, each of which raises (non-zero exit) on failure:
    the forest relocalizes on the host within 2 frames of the blackout's
    end, no frame is lost from 15 frames after, pan MAE < 3e-3 rad after.
    (d) ``python3 -m ptzjax_torch.run --synthetic --frames 30`` in a
-   subprocess with no ``--device``: it runs on ``cuda`` and exits 0.
+   subprocess with no ``--device``: it runs on ``cuda`` and exits 0. (e)
+   ``--tracker homography --synthetic-images`` at 720p, 96 frames, bench.py's
+   trajectory flags: no frame rejected, pan MAE over the first 20 frames <
+   5e-3 rad (tests/test_baselines.py's bar), launches A 96, B 96 (the staged
+   features), C 95 (one match a tracked frame), D 0; the first 8 frames on
+   the card against the same CLI with ``--device cpu``; then
+   ``track_homography_ekf`` over frames 1-40 of 4b's sequence: wall, device
+   time and kernels a frame. (f) ``--offline`` on
+   5a's sequence (720p, 192 frames: at 96 the keyframe policy inserts none,
+   and BA would refine rays against the one frozen bootstrap camera): no
+   lost frame, pan MAE < 3e-3 rad, the BA cost not raised, launches A and B
+   192 (the sharded frontend) and C and D the call sites' counts for its
+   records. (g) ``dist.run_sharded`` in a one-rank
+   NCCL process group on the card (TCP rendezvous on localhost): through
+   the one-device mesh and through a mesh that holds the group (so the
+   all-reduces and the all-gather run on NCCL), plain and robust, bitwise
+   ``ba.run`` / ``ba.run_robust`` without a group, on the BA bench problem.
 
 The line before the last is one JSON object with the kernels' numbers
 (``launches`` from run 4b, ``launches_by_path`` from 4b, both 4c runs, 4e
-and the CLI runs of 5a-5c); the last line is ``{"ok": true, "device":
-{...}}``.
+and the runs of 5a-5c and 5e-5g); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -496,6 +513,7 @@ def matcher_phase(dev, card: str) -> dict:
     d_dim = 128
     shapes = (   # (name, Q, R, gated, mutual, ratio of the call site)
         ("512x256 gated 60px", 512, 256, True, True, 0.95),
+        ("512x512 mutual", 512, 512, False, True, 0.8),
         ("512x2048", 512, 2048, False, True, 0.8),
         ("512x4096 mutual", 512, 4096, False, True, 0.8),
         ("512x32768 one-way", 512, 32768, False, False, 0.8),
@@ -1087,7 +1105,7 @@ def movers_phase(tmp: str, card: str) -> dict:
 
 def forest_phase(imgs_np: np.ndarray, cams, intr, tmp: str, card: str) -> dict:
     """5c: the 4c sequence (BLACKOUT zeroed) through the CLI's loop with
-    --reloc forest. Returns the launches of A and B."""
+    --reloc forest. Returns its launch counts."""
     from ptzjax_torch import run
 
     t0 = time.perf_counter()
@@ -1109,7 +1127,7 @@ def forest_phase(imgs_np: np.ndarray, cams, intr, tmp: str, card: str) -> dict:
     print(
         f"5c forest, blackout {BLACKOUT.start}-{BLACKOUT.stop - 1}: keyframes inserted before it at {kf_before} "
         f"(and the bootstrap), lost frames {frame[lost].tolist()}, forest frames {res.forest_frames}, "
-        f"recovered at {recovered[:1]}; launches A {counts['harris_nms']}, B {counts['gather_windows']}"
+        f"recovered at {recovered[:1]}; launches {counts}"
     )
     check(kf_before, "5c: no keyframe inserted before the blackout")
     check(lost[np.isin(frame, list(BLACKOUT))].any(), "5c: no frame lost in the blackout")
@@ -1125,7 +1143,7 @@ def forest_phase(imgs_np: np.ndarray, cams, intr, tmp: str, card: str) -> dict:
         f"5c forest: first recovered frame {first}, pan MAE over the {len(after)} tracked frames after it {mae} rad; "
         f"fps {res.summary['fps']:.2f} [{card}]; phase {time.perf_counter() - t0:.1f} s"
     )
-    return {"harris_nms": counts["harris_nms"], "gather_windows": counts["gather_windows"]}
+    return counts
 
 
 def module_phase(tmp: str, card: str) -> None:
@@ -1144,6 +1162,178 @@ def module_phase(tmp: str, card: str) -> None:
         f"5d python3 -m ptzjax_torch.run --synthetic --frames 30 (no --device): exit 0 on cuda, lost "
         f"{summary['frames_lost']}, fps {summary['fps']:.2f} [{card}]; phase {time.perf_counter() - t0:.1f} s"
     )
+
+
+def homography_frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
+    """5e: ``track_homography_ekf`` over frames 1-40 of 4b's sequence, its
+    features staged on the card: wall per frame (one pass), device time and
+    kernels per frame (a second pass, under the profiler)."""
+    from ptzjax_torch.baselines import init_vo, track_homography_ekf
+    from ptzjax_torch.config import SLAMConfig
+    from ptzjax_torch.frontend import extract_sequence
+
+    cfg = SLAMConfig()
+    xy, desc, valid = extract_sequence(imgs[:41], cfg)
+    state = init_vo(cams[0], xy[0], desc[0], valid[0], cfg)
+
+    def run():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, infos = track_homography_ekf(state, xy[1:], desc[1:], valid[1:], intr=intr, cfg=cfg)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) * 1e3 / 40, infos
+
+    run()
+    wall, infos = run()
+    check(bool(infos.updated.all()), "5e frames: a frame rejected")
+
+    def traced():
+        with profiled() as prof:
+            run()
+        return device_kernels(prof)
+
+    kernels = repeat_until_same(traced, lambda k: (len(k),))
+    check(kernels, "the profiler recorded no device time")
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    device_ms = sum(by_name.values()) / 40 / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    print(
+        f"5e baseline frames 1-40 of 4b's sequence: wall {wall:.3f} ms a frame, device {device_ms:.4f} ms "
+        f"({len(kernels) / 40:.1f} kernels, busy {100 * device_ms / wall:.1f}%); largest: "
+        + "; ".join(f"{name[:60]} {us / 40 / 1e3:.4f} ms" for name, us in top)
+        + f" [{card}]"
+    )
+
+
+def homography_phase(tmp: str, card: str) -> dict:
+    """5e: --tracker homography on --synthetic-images at 720p, 96 frames,
+    bench.py's trajectory flags; its first 8 frames against the same CLI on
+    the CPU. Returns its launch counts."""
+    t0 = time.perf_counter()
+    argv = ["--synthetic-images", *BENCH_FLAGS, "--tracker", "homography"]
+    res, counts, _, _ = cli_run([*argv, "--frames", "96", "--out", os.path.join(tmp, "homography")])
+    recs, summary = res.records, res.summary
+    pose = np.array([r["pose"] for r in recs])
+    traj = np.load(os.path.join(tmp, "homography", "trajectory.npz"))
+    err = np.abs(pose - traj["gt"])
+    mae20 = float(err[:20, 0].mean())
+    inliers = np.array([r["num_matches"] for r in recs])
+    want = {"harris_nms": 96, "gather_windows": 96, "match_scores": 95, "cholesky": 0}
+    print(
+        f"5e homography: 96 frames 720p: rejected {summary['frames_lost']}, pan MAE first 20 frames {mae20} rad, "
+        f"all frames {float(err[:, 0].mean())} rad; inliers a frame mean {float(inliers.mean()):.1f}, min "
+        f"{int(inliers.min())}; launches {counts}; fps {summary['fps']:.2f} (tracking only) [{card}]"
+    )
+    check(len(recs) == 95 and np.isfinite(pose).all(), f"5e: {len(recs)} records")
+    check(summary["frames_lost"] == 0, f"5e: {summary['frames_lost']} frames rejected")
+    check(mae20 < 5e-3, f"5e: pan MAE over the first 20 frames {mae20} >= 5e-3")
+    check(counts == want, f"5e: launches {counts}, call sites give {want}")
+    # the first 8 frames through the same CLI on the CPU (plain versions)
+    from ptzjax_torch import run
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = run.main([*argv, "--frames", "8", "--out", os.path.join(tmp, "homography_cpu"), "--device", "cpu"])
+    n_cpu = len(cpu.records)
+    d = np.abs(np.array([r["pose"] for r in cpu.records]) - pose[:n_cpu])
+    check([r["lost"] for r in cpu.records] == [r["lost"] for r in recs[:n_cpu]], "5e: card and CPU flags differ")
+    check(
+        [r["num_matches"] for r in cpu.records] == inliers[:n_cpu].tolist(), "5e: card and CPU inlier counts differ"
+    )
+    check(d[:, :2].max() < 5e-4 and d[:, 2].max() < 2.0, f"5e: card and CPU poses differ by {d.max(0)}")
+    print(
+        f"5e homography: first {n_cpu + 1} frames card vs CPU: flags and inlier counts equal, max |d pan,tilt| "
+        f"{d[:, :2].max()} rad, max |d f| {d[:, 2].max()} px; phase {time.perf_counter() - t0:.1f} s"
+    )
+    return counts
+
+
+def offline_phase(tmp: str, card: str, frames: int = 192) -> dict:
+    """5f: --offline on 5a's sequence (one process: the one-device mesh).
+    Returns its launch counts."""
+    t0 = time.perf_counter()
+    res, counts, _, _ = cli_run(
+        ["--synthetic-images", "--offline", "--frames", str(frames), *BENCH_FLAGS, "--out", os.path.join(tmp, "offline")]
+    )
+    recs, s = res.records, res.summary
+    traj = np.load(os.path.join(tmp, "offline", "trajectory.npz"))
+    mae = float(np.abs(traj["pose"][:, 0] - traj["gt"][:, 0]).mean())
+    want = {**expected_from_records(recs), "harris_nms": frames, "gather_windows": frames}
+    print(
+        f"5f offline: {frames} frames 720p, mesh of {s['mesh_devices']}: lost {s['frames_lost']}, keyframes "
+        f"{s['keyframes']}, pan MAE {mae} rad; BA cost {s['ba_cost_before']:.3f} -> {s['ba_cost_after']:.3f} px^2; "
+        f"frontend {s['frontend_s']:.3f} s, tracking {s['tracking_s']:.3f} s, BA {s['ba_s']:.3f} s; "
+        f"launches {counts}; fps {s['fps']:.2f} (frontend + tracking) [{card}]"
+    )
+    check(len(recs) == frames - 1 and s["frames_lost"] == 0, f"5f: {s['frames_lost']} lost frames")
+    check(s["keyframes"] >= 1, "5f: no keyframe inserted, the BA has one frozen camera")
+    check(mae < 3e-3, f"5f: pan MAE {mae} >= 3e-3")
+    check(np.isfinite(s["ba_cost_after"]) and s["ba_cost_after"] <= s["ba_cost_before"], f"5f: BA cost {s}")
+    check(counts == want, f"5f: launches {counts}, call sites give {want}")
+    print(f"5f offline: phase {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def one_rank_nccl_phase(dev, card: str) -> dict:
+    """5g: ``dist.run_sharded`` in a one-rank NCCL group on the card, on the
+    BA bench problem, bitwise ``ba.run`` (and, with a Huber width,
+    ``ba.run_robust``) without a group. Returns its launch counts (none of
+    the four kernels is on this path)."""
+    import socket
+
+    import torch.distributed as tdist
+
+    from ptzjax_torch import ba, dist
+    from ptzjax_torch.config import SLAMConfig
+
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.initialize_multihost(f"tcp://127.0.0.1:{port}", world_size=1, rank=0, backend="nccl", timeout_s=120)
+    reset_counts()
+    try:
+        prob, bintr = bench_ba_problem(dev)
+        meshes = {"one-device mesh": dist.make_mesh(), "mesh holding the group": dist.Mesh(("obs",), (1,), None, tdist.group.WORLD)}
+        check(meshes["one-device mesh"].group is None, "5g: a one-process world made a group")
+        for huber in (0.0, 2.0):
+            cfg = SLAMConfig(ba_iters=20, ba_huber_px=huber)
+
+            def plain():
+                return ba.run_robust(prob, bintr, cfg) if huber else ba.run(prob, bintr, cfg)
+
+            def sharded():
+                return dist.run_sharded(prob, bintr, cfg, meshes["mesh holding the group"])
+
+            want = plain()
+            for name, mesh in meshes.items():
+                got = dist.run_sharded(prob, bintr, cfg, mesh)
+                torch.cuda.synchronize()
+                for field in ba.BAResult._fields:
+                    a, b = getattr(got, field), getattr(want, field)
+                    check(a.device == b.device and torch.equal(a, b), f"5g {name}, huber {huber}: {field} differs")
+            # wall per solve, in turns (without, with, with, without) x 4:
+            # the host's speed drifts within a call
+            walls: dict = {plain: [], sharded: []}
+            for _ in range(4):
+                for fn in (plain, sharded, sharded, plain):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    walls[fn].append((time.perf_counter() - t1) * 1e3)
+            print(
+                f"5g run_sharded, one-rank NCCL group, huber {huber}: bitwise ba.run{'_robust' if huber else ''} "
+                f"through both meshes; cost {float(want.initial_cost):.1f} -> {float(want.cost):.1f} px^2; wall "
+                f"median {np.median(walls[sharded]):.3f} ms through the group, {np.median(walls[plain]):.3f} ms "
+                f"without (8 solves each, in turns) [{card}]"
+            )
+        counts = read_counts()
+    finally:
+        tdist.destroy_process_group()
+    print(f"5g: launches {counts}; phase {time.perf_counter() - t0:.1f} s")
+    return counts
 
 
 def main() -> int:
@@ -1256,12 +1446,17 @@ def main() -> int:
     resume_phase(imgs, cams, intr, infos, card)
 
     # 5. the CLI: 5a (re-detect with BA and checkpoints, then KLT), 5b
-    # (movers), 5c (forest relocalization), 5d (the module entry point)
+    # (movers), 5c (forest relocalization), 5d (the module entry point), 5e
+    # (the homography baseline), 5f (offline); 5g (sharded BA, one NCCL rank)
     with tempfile.TemporaryDirectory() as tmp:
         by_path.update(cli_phase(tmp, card))
         by_path["cli_movers"] = movers_phase(tmp, card)
         by_path["cli_forest_blackout"] = forest_phase(imgs_np, cams, intr, tmp, card)
         module_phase(tmp, card)
+        by_path["cli_homography"] = homography_phase(tmp, card)
+        homography_frame_phase(imgs, cams, intr, card)
+        by_path["cli_offline"] = offline_phase(tmp, card)
+    by_path["dist_one_rank_nccl"] = one_rank_nccl_phase(dev, card)
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items() if k["name"] in c}
 

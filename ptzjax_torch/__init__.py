@@ -1,8 +1,10 @@
 """ptzjax_torch — the PyTorch + CUDA (Hopper) port of ptzjax.
 
 The from-pixels SLAM loop (re-detect and KLT mode), relocalization (map,
-keyframe and the native forest), whole-map BA, checkpoints, the run report
-and the experiment CLI (``python -m ptzjax_torch.run``) with its host data
+keyframe and the native forest), whole-map BA, checkpoints, the run report,
+the homography-EKF baseline (``baselines``), the offline mode's sharded
+frontend and ray-sharded BA on ``torch.distributed`` (``dist``) and the
+experiment CLI (``python -m ptzjax_torch.run``) with its host data
 layer (synthetic sequences, annotation I/O, plots) in plain PyTorch, with
 the four kernels they reach (Harris+NMS detection, the descriptor window
 gather, the fused descriptor matcher and the EKF innovation Cholesky)
@@ -11,6 +13,7 @@ torch version; a CUDA tensor launches the kernel. The module and function
 names follow ``ptzjax`` so each counterpart is easy to find.
 """
 
+from ptzjax_torch.baselines import VOInfo, VOState, init_vo, track_homography_ekf
 from ptzjax_torch.config import SLAMConfig
 from ptzjax_torch.geometry import (
     Intrinsics,

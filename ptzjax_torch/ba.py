@@ -1,6 +1,8 @@
 """Bundle adjustment: Levenberg-Marquardt with the ray-landmark Schur
-complement. Port of ``ptzjax/ba.py``'s ``run`` (the component-wise fast
-path) and its Huber-IRLS ``run_robust``; the sharded path is not here.
+complement. Port of ``ptzjax/ba.py``: the block-tensor formulation (the
+readable specification the tests hold the fast path to), the
+component-wise fast path that ``run`` iterates, and the Huber-IRLS
+``run_robust``.
 
 Cameras are 3-vectors (pan, tilt, focal), rays 2-vectors; rays are
 eliminated with closed-form 2x2 inverses and the small dense (3K x 3K)
@@ -9,7 +11,12 @@ reduced camera system is solved by Cholesky (``cholesky_ex`` +
 in the reference). The focal enters the parameters as f * focal_scale.
 
 Data layout is ray-major: an (M, C) table of observations per ray; the
-flat observation order is c-major (n = c * M + m).
+flat observation order is c-major (n = c * M + m). Each ray's blocks live in
+its own row, so sharding the rays over processes (``dist.run_sharded``)
+needs one sum across them per LM step: ``group`` (a ``torch.distributed``
+process group) makes ``run``, ``run_robust``, ``init_lm_state`` and
+``run_lm`` all-reduce the camera system and the costs where the reference
+calls ``psum``. With ``group=None`` nothing is reduced.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ import torch
 
 from ptzjax_torch import _device
 from ptzjax_torch.config import SLAMConfig
-from ptzjax_torch.geometry import ANGLE_CLIP, Intrinsics
+from ptzjax_torch.geometry import ANGLE_CLIP, Intrinsics, project_jacobians, project_rays
 
 
 class BAProblem(NamedTuple):
@@ -50,6 +57,130 @@ class BAResult(NamedTuple):
     initial_cost: torch.Tensor
     iterations: torch.Tensor     # LM iterations run
     accepted: torch.Tensor       # number of accepted steps
+
+
+# --- block-tensor formulation --------------------------------------------------
+#
+# The normal equations written with explicit (M, C, 2, 3) camera and
+# (M, C, 2, 2) ray Jacobian blocks. ``run`` does not use it: it is the
+# specification the component-wise fast path below is tested against.
+
+
+def _gather_obs(cams, rays, prob: BAProblem, intr: Intrinsics):
+    """Weighted residuals and Jacobian blocks for every (ray, slot)
+    observation: r (M, C, 2), A (M, C, 2, 3) wrt (pan, tilt, f), B (M, C,
+    2, 2) wrt the ray."""
+    m, c = prob.obs_cam.shape
+    cam_per_obs = cams[prob.obs_cam.long()]                       # (M, C, 3)
+    pix, j_cam, j_ray = project_jacobians(
+        cam_per_obs.reshape(m * c, 3), rays[:, None, :].expand(m, c, 2).reshape(m * c, 1, 2), intr
+    )
+    r = pix.reshape(m, c, 2) - prob.obs_pix
+    w = prob.obs_w[..., None]
+    return r * w, j_cam.reshape(m, c, 2, 3) * w[..., None], j_ray.reshape(m, c, 2, 2) * w[..., None]
+
+
+def _scale_jac(a: torch.Tensor, focal_scale: float) -> torch.Tensor:
+    """Rescale the focal column for the scaled parameterization."""
+    return torch.cat([a[..., :2], a[..., 2:] / focal_scale], -1)
+
+
+def compute_cost(cams, rays, prob: BAProblem, intr: Intrinsics) -> torch.Tensor:
+    """Weighted SSE, Jacobian-free."""
+    cam_per_obs = cams[prob.obs_cam.long()]                       # (M, C, 3)
+    rays_b = rays[:, None, None, :].expand(*prob.obs_cam.shape, 1, 2)
+    pix = project_rays(cam_per_obs, rays_b, intr)[..., 0, :]      # (M, C, 2)
+    r = (pix - prob.obs_pix) * prob.obs_w[..., None]
+    return (r * r).sum()
+
+
+def _cam_onehot(obs_cam: torch.Tensor, num_cams: int, dtype=torch.float32) -> torch.Tensor:
+    """(M, C) camera ids -> (M, C, K) one-hot selector (padding observations
+    carry weight 0, so their camera-0 rows add nothing)."""
+    ids = torch.arange(num_cams, dtype=obs_cam.dtype, device=obs_cam.device)
+    return (obs_cam[..., None] == ids).to(dtype)
+
+
+def normal_terms(cams, rays, prob: BAProblem, intr: Intrinsics, focal_scale: float):
+    """Per-shard LM normal-equation terms.
+
+    Returns:
+      u (K, 3, 3) camera blocks, g_c (K, 3), v (M, 2, 2) ray blocks,
+      g_r (M, 2), w_blk (M, C, 3, 2) = A^T B.
+    """
+    k = cams.shape[0]
+    r, a, b = _gather_obs(cams, rays, prob, intr)
+    a = _scale_jac(a, focal_scale)
+    e = _cam_onehot(prob.obs_cam, k, a.dtype)                     # (M, C, K)
+    ata = torch.einsum("mcab,mcad->mcbd", a, a)                   # (M, C, 3, 3)
+    atr = torch.einsum("mcab,mca->mcb", a, r)                     # (M, C, 3)
+    u = torch.einsum("mck,mcbd->kbd", e, ata)                     # (K, 3, 3)
+    g_c = torch.einsum("mck,mcb->kb", e, atr)                     # (K, 3)
+    v = torch.einsum("mcab,mcad->mbd", b, b)                      # (M, 2, 2)
+    g_r = torch.einsum("mcab,mca->mb", b, r)                      # (M, 2)
+    w_blk = torch.einsum("mcab,mcad->mcbd", a, b)                 # (M, C, 3, 2)
+    return u, g_c, v, g_r, w_blk
+
+
+def _inv2x2(v: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
+    """Batched closed-form 2x2 inverse; padding rows (zero blocks) -> ~0."""
+    a, b_ = v[..., 0, 0], v[..., 0, 1]
+    c, d = v[..., 1, 0], v[..., 1, 1]
+    det = a * d - b_ * c + eps
+    return torch.stack([torch.stack([d, -b_], -1), torch.stack([-c, a], -1)], -2) / det[..., None, None]
+
+
+def schur_local(v, g_r, w_blk, obs_cam, num_cams: int, lam):
+    """Shard-local Schur-correction contributions: only this shard's ray
+    rows are touched, so a sharded solve sums the returned (K, K, 3, 3) and
+    (K, 3) blocks across shards. Returns (s_corr, rhs_corr, v_inv); v_inv
+    is reused by ``back_substitute``."""
+    v_inv = _inv2x2(_damp(v, lam))                                # (M, 2, 2)
+    y = torch.einsum("mcab,mbd->mcad", w_blk, v_inv)              # (M, C, 3, 2)
+    e = _cam_onehot(obs_cam, num_cams, w_blk.dtype)               # (M, C, K)
+    gy = torch.einsum("mck,mcae->mkae", e, y)                     # (M, K, 3, 2)
+    gw = torch.einsum("mck,mcae->mkae", e, w_blk)
+    s_corr = torch.einsum("mkae,mlbe->klab", gy, gw)              # (K, K, 3, 3)
+    rhs_corr = torch.einsum("mkae,me->ka", gy, g_r)               # (K, 3)
+    return s_corr, rhs_corr, v_inv
+
+
+def schur_reduce(u, g_c, v, g_r, w_blk, obs_cam, cam_free, lam):
+    """Single-shard convenience: local contributions + assembly."""
+    s_corr, rhs_corr, _ = schur_local(v, g_r, w_blk, obs_cam, u.shape[0], lam)
+    return schur_assemble(u, g_c, s_corr, rhs_corr, cam_free, lam)
+
+
+def back_substitute(v_inv, g_r, w_blk, obs_cam, dc):
+    """Per-ray updates dr_j = V_j^-1 (-g_rj - sum_c W_jc^T dc_cam)."""
+    dc_blocks = dc.reshape(-1, 3)
+    wt_dc = torch.einsum("mcab,mca->mb", w_blk, dc_blocks[obs_cam.long()])   # (M, 2)
+    return torch.einsum("mab,mb->ma", v_inv, -g_r - wt_dc)
+
+
+def lm_iteration(cams, rays, lam, prob: BAProblem, intr: Intrinsics, cfg: SLAMConfig, group=None):
+    """One damped step (the fast path, its invariants rebuilt): the
+    candidate parameters; the caller decides acceptance."""
+    return _lm_iteration_fast(cams, rays, lam, prob, precompute(prob), intr, cfg, group=group)
+
+
+def _all_reduce(tensors, group):
+    """The sum of each tensor over ``group``, as one all-reduce of their
+    concatenation; the tensors themselves where ``group`` is None."""
+    if group is None:
+        return tensors
+    import torch.distributed as tdist
+
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    tdist.all_reduce(flat, op=tdist.ReduceOp.SUM, group=group)
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].reshape(t.shape))
+        at += t.numel()
+    return out
+
+
+# --- fast path -----------------------------------------------------------------
 
 
 class BAPrecomp(NamedTuple):
@@ -225,11 +356,13 @@ def _fast_back_substitute(dc, pre: BAPrecomp, local):
     return torch.stack([i00 * rhs0 + i01 * rhs1, i01 * rhs0 + i11 * rhs1], -1)
 
 
-def _lm_iteration_fast(cams, rays, lam, prob: BAProblem, pre: BAPrecomp, intr, cfg: SLAMConfig):
-    """One damped step: build, reduce, solve, back-substitute. Returns the
-    candidate parameters (the caller decides acceptance)."""
+def _lm_iteration_fast(cams, rays, lam, prob: BAProblem, pre: BAPrecomp, intr, cfg: SLAMConfig, group=None):
+    """One damped step: build, reduce (over ``group``'s ray shards), solve,
+    back-substitute. Returns the candidate parameters (the caller decides
+    acceptance)."""
     fs = cfg.ba_focal_scale
     u, g_c, s_corr, rhs_corr, local = _fast_terms(cams, rays, lam, prob, pre, intr, fs)
+    u, g_c, s_corr, rhs_corr = _all_reduce((u, g_c, s_corr, rhs_corr), group)
     s, rhs = schur_assemble(u, g_c, s_corr, rhs_corr, prob.cam_free, lam)
     chol, info = torch.linalg.cholesky_ex(s)
     chol = torch.where(info == 0, chol, torch.full_like(chol, float("nan")))
@@ -251,30 +384,35 @@ class LMState(NamedTuple):
     iterations: torch.Tensor
 
 
-def init_lm_state(prob: BAProblem, intr: Intrinsics, cfg: SLAMConfig) -> LMState:
+def init_lm_state(prob: BAProblem, intr: Intrinsics, cfg: SLAMConfig, group=None) -> LMState:
     pre = precompute(prob)
     dev = prob.cams.device
+    (cost0,) = _all_reduce((fast_cost(prob.cams, prob.rays, prob, pre, intr),), group)
     return LMState(
         cams=prob.cams,
         rays=prob.rays,
         lam=torch.full((), cfg.ba_lambda0, dtype=prob.cams.dtype, device=dev),
-        cost=fast_cost(prob.cams, prob.rays, prob, pre, intr),
+        cost=cost0,
         accepted=torch.zeros((), dtype=torch.int32, device=dev),
         iterations=torch.zeros((), dtype=torch.int32, device=dev),
     )
 
 
 def run_lm(
-    prob: BAProblem, intr: Intrinsics, cfg: SLAMConfig, lm: LMState, num_iters: int | None = None
+    prob: BAProblem, intr: Intrinsics, cfg: SLAMConfig, lm: LMState, num_iters: int | None = None,
+    group=None,
 ) -> LMState:
     """Advance the LM loop ``num_iters`` damped steps from ``lm``: rejected
     steps keep the parameters and raise lambda, accepted ones lower it. Runs
-    without host syncs (accept/reject is a device-side select)."""
+    without host syncs (accept/reject is a device-side select). With
+    ``group``, ``prob`` holds this process's ray shard: the camera system
+    and the costs are summed over the group, the camera solve is the same on
+    every process, rays stay local."""
     pre = precompute(prob)
     n = cfg.ba_iters if num_iters is None else num_iters
     for _ in range(n):
-        cand_cams, cand_rays = _lm_iteration_fast(lm.cams, lm.rays, lm.lam, prob, pre, intr, cfg)
-        cand_cost = fast_cost(cand_cams, cand_rays, prob, pre, intr)
+        cand_cams, cand_rays = _lm_iteration_fast(lm.cams, lm.rays, lm.lam, prob, pre, intr, cfg, group)
+        (cand_cost,) = _all_reduce((fast_cost(cand_cams, cand_rays, prob, pre, intr),), group)
         ok = cand_cost < lm.cost
         lm = LMState(
             cams=torch.where(ok, cand_cams, lm.cams),
@@ -289,10 +427,11 @@ def run_lm(
     return lm
 
 
-def run(prob: BAProblem, intr: Intrinsics, cfg: SLAMConfig) -> BAResult:
-    """Full LM loop with accept/reject, ``cfg.ba_iters`` iterations."""
-    lm0 = init_lm_state(prob, intr, cfg)
-    lm = run_lm(prob, intr, cfg, lm0)
+def run(prob: BAProblem, intr: Intrinsics, cfg: SLAMConfig, group=None) -> BAResult:
+    """Full LM loop with accept/reject, ``cfg.ba_iters`` iterations (over
+    ``group``'s ray shards where it is given)."""
+    lm0 = init_lm_state(prob, intr, cfg, group)
+    lm = run_lm(prob, intr, cfg, lm0, group=group)
     return BAResult(
         cams=lm.cams,
         rays=lm.rays,
@@ -314,22 +453,26 @@ def huber_factors(cams, rays, prob: BAProblem, intr: Intrinsics, huber_px: float
     return torch.where(w > 0, wh, 0.0).T                       # (M, C)
 
 
-def run_robust(prob: BAProblem, intr: Intrinsics, cfg: SLAMConfig, rounds: int | None = None) -> BAResult:
+def run_robust(
+    prob: BAProblem, intr: Intrinsics, cfg: SLAMConfig, rounds: int | None = None, group=None
+) -> BAResult:
     """Huber-IRLS robust BA: ``rounds`` (default ``cfg.ba_irls_rounds``)
     times, reweight every observation by the Huber factor
     (``cfg.ba_huber_px``) of its residual at the current parameters, then run
     the LM solve from them. The first weights come from the initial
     parameters. ``initial_cost`` is the first round's starting cost, ``cost``
-    the last round's final cost under its own weights. rounds=0 is ``run``."""
+    the last round's final cost under its own weights. rounds=0 is ``run``.
+    With ``group``, each process weights its own rays and every round's LM
+    solve is summed over the group."""
     rounds = cfg.ba_irls_rounds if rounds is None else rounds
     if rounds <= 0:
-        return run(prob, intr, cfg)
+        return run(prob, intr, cfg, group)
     base_w = prob.obs_w
     init_cost = None
     for _ in range(rounds):
         wh = huber_factors(prob.cams, prob.rays, prob._replace(obs_w=base_w), intr, cfg.ba_huber_px)
         prob = prob._replace(obs_w=base_w * wh)
-        res = run(prob, intr, cfg)
+        res = run(prob, intr, cfg, group)
         if init_cost is None:
             init_cost = res.initial_cost
         prob = prob._replace(cams=res.cams, rays=res.rays)

@@ -422,3 +422,30 @@ def insert_rays(
     return state._replace(
         rays=rays, active=active, ray_ids=ray_ids, missed=missed, rej=rej, cov=cov
     )
+
+
+def step(
+    state: EKFState, obs: torch.Tensor, obs_mask: torch.Tensor, intr: Intrinsics, cfg: SLAMConfig
+) -> tuple[EKFState, UpdateStats]:
+    """Predict + update: one frame of slot-aligned observations."""
+    return update(predict(state, cfg), obs, obs_mask, intr, cfg)
+
+
+def scan_track(
+    state: EKFState, obs_seq: torch.Tensor, mask_seq: torch.Tensor, intr: Intrinsics, cfg: SLAMConfig
+) -> tuple[EKFState, tuple[torch.Tensor, UpdateStats]]:
+    """Track a whole sequence of slot-aligned observations, frame by frame
+    with no host read.
+
+    Args:
+      obs_seq: (T, N, 2), mask_seq: (T, N).
+
+    Returns:
+      (final_state, (poses (T, 3), stats stacked over T)).
+    """
+    poses, stats = [], []
+    for o, m in zip(obs_seq, mask_seq):
+        state, st = step(state, o, m, intr, cfg)
+        poses.append(state.pose)
+        stats.append(st)
+    return state, (torch.stack(poses), UpdateStats(*(torch.stack(list(f)) for f in zip(*stats))))

@@ -1,7 +1,8 @@
 """Image frontend: raw frames -> fixed-capacity features. Port of
 ``ptzjax/frontend.py``: the re-detect step (Harris detector + upright-SIFT
-descriptor) and the KLT step (LK flow, refill detection, descriptors), all
-dispatching to the hand-written kernels for a CUDA image."""
+descriptor), its batch form ``extract_sequence``, and the KLT step (LK flow,
+refill detection, descriptors), all dispatching to the hand-written kernels
+for a CUDA image."""
 
 from __future__ import annotations
 
@@ -131,3 +132,19 @@ def track_features(
     new_valid = set_rows_drop(tracked, target, True)
     desc = describe_keypoints(img_next, new_xy, new_valid, scale=_desc_scale(cfg, focal))
     return new_xy, desc, new_valid, tracked
+
+
+def extract_sequence(imgs, cfg: SLAMConfig, masks=None, device=None):
+    """``extract_features`` over a (T, H, W) stack, one frame at a time
+    (each frame moves to the device in its turn), stacked: (xy (T, K, 2),
+    desc (T, K, D), valid (T, K)). ``device``: by default the device of
+    ``imgs`` if it is a tensor, else the card."""
+    dev = _device.resolve(device, imgs)
+    out = [
+        extract_features(
+            torch.as_tensor(imgs[k], device=dev), cfg,
+            mask=None if masks is None else torch.as_tensor(masks[k], device=dev),
+        )
+        for k in range(len(imgs))
+    ]
+    return tuple(torch.stack(list(v)) for v in zip(*out))

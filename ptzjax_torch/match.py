@@ -1,5 +1,5 @@
-"""Descriptor matching, pan-tilt consensus and slot scatter. Port of
-``ptzjax/match.py``. Both matchers reduce the masked score matrix through
+"""Descriptor matching, pan-tilt consensus and RANSAC, and slot scatter.
+Port of ``ptzjax/match.py``. Both matchers reduce the masked score matrix through
 ``kernels.match.match_scores`` (the Hopper kernel on the card, its plain
 version on the CPU) and take their decisions here.
 
@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from ptzjax_torch import _device, _prng
 from ptzjax_torch.kernels.match import match_scores
 
 _NEG = -1e9
@@ -158,6 +159,45 @@ def consensus_pan_tilt(
     ry = by - sol[1] - sol[2] * bty
     refined = ok & (rx * rx + ry * ry < inlier_px * inlier_px)
     return refined, refined.sum()
+
+
+def ransac_pan_tilt(
+    rays, xy, ok, focal, cx: float, cy: float, num_hypotheses: int = 64,
+    inlier_px: float = 3.0, seed: int = 0,
+):
+    """Pan-tilt-consistency outlier rejection for 2D <-> ray matches: each
+    of ``num_hypotheses`` sampled matches votes a closed-form (pan, tilt)
+    (candidate 0's first valid vote where the pick is invalid), every vote
+    is scored against all matches, and the best one's inliers are kept.
+
+    The picks are ``jax.random.randint(PRNGKey(seed), (H,), 0, Q)``, the
+    reference's draw, computed on the host once per (seed, H, Q) and kept
+    on the device.
+
+    Returns:
+      (Q,) bool inlier mask (a subset of ``ok``).
+    """
+    q = rays.shape[0]
+    cx, cy = float(cx), float(cy)
+    focal = torch.as_tensor(focal, dtype=torch.float32, device=rays.device)
+    u = torch.atan2(xy[:, 0] - cx, focal)
+    pan_i = rays[:, 0] - u
+    tilt_i = rays[:, 1] - torch.atan2(-(xy[:, 1] - cy) * torch.cos(u), focal)
+
+    pick = _device.const(_prng.ransac_picks(seed, num_hypotheses, q), rays.device, torch.int64)
+    first_ok = torch.argmax(ok.to(torch.uint8), dim=0, keepdim=True)   # (1,): no host read
+    pick = torch.where(ok[pick], pick, first_ok)
+    h_pan = pan_i[pick]                                      # (H,)
+    h_tilt = tilt_i[pick]
+
+    du = rays[None, :, 0] - h_pan[:, None]                   # (H, Q)
+    dv = rays[None, :, 1] - h_tilt[:, None]
+    px = focal * torch.tan(du) + cx
+    py = -focal * torch.tan(dv) / torch.cos(du) + cy
+    err2 = (px - xy[None, :, 0]) ** 2 + (py - xy[None, :, 1]) ** 2
+    inl = ok[None, :] & (err2 < inlier_px * inlier_px)       # (H, Q)
+    best = torch.argmax(inl.sum(1), dim=0, keepdim=True)
+    return inl[best][0]
 
 
 def scatter_to_slots(result: MatchResult, xy_query, num_slots: int):

@@ -12,14 +12,20 @@ Modes:
   --synthetic-images   panorama-rendered video through the vision kernels
   --annotation/--images  dataset mode (.mat/.npz annotations + frames)
 
+Execution modes (any input mode):
+  (default)            the online SLAM loop
+  --tracker homography the frame-to-frame homography-EKF baseline
+  --offline            sharded frontend, tracking, then sharded BA over the
+                       map (``dist``); several cards through torchrun
+
 It runs on the card (``--device`` defaults to ``cuda`` and raises where
 there is none); ``--device cpu`` runs the kernels' plain versions on the
-CPU. ``--offline`` / ``--oracle-focals`` (``dist``) and ``--tracker
-homography`` (``baselines``) are not ported yet and exit non-zero.
+CPU.
 
 Example:
   python -m ptzjax_torch.run --synthetic --frames 240 --out /tmp/run1
   python -m ptzjax_torch.run --annotation seq.mat --images frames/ --out /tmp/run2
+  torchrun --nproc-per-node 4 -m ptzjax_torch.run --synthetic-images --offline --out /tmp/run3
 """
 
 from __future__ import annotations
@@ -84,8 +90,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--tracker", type=str, default="slam", choices=["slam", "homography"],
         help="'slam' = the full keyframe+map system; 'homography' = the "
-             "frame-to-frame homography-EKF baseline (not ported yet: "
-             "ptzjax_torch.baselines)",
+             "frame-to-frame homography-EKF baseline (ptzjax_torch.baselines), "
+             "the drift comparison; image modes stage its features first",
     )
     p.add_argument(
         "--plot", action="store_true",
@@ -99,13 +105,23 @@ def _parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--offline", action="store_true",
-        help="offline execution mode: sharded frontend, tracking, sharded "
-             "BA (not ported yet: ptzjax_torch.dist)",
+        help="offline execution mode: frame-parallel feature extraction "
+             "over the mesh (dist.extract_features_sharded), the tracking "
+             "loop, then ray-sharded bundle adjustment over the mesh (robust "
+             "when --ba-huber > 0); summary.json adds ba_cost_before/after. "
+             "Under torchrun every process joins the mesh",
     )
     p.add_argument(
         "--oracle-focals", action="store_true",
         help="--offline: zoom-normalize descriptors with per-frame "
-             "ground-truth focals (not ported yet: ptzjax_torch.dist)",
+             "ground-truth focals instead of the frame-0 focal. Leaks ground "
+             "truth into the frontend: for frontend ablations only",
+    )
+    p.add_argument(
+        "--mesh-devices", type=int, default=0,
+        help="--offline: devices in the 1-D mesh, one process each (0 = "
+             "every process of the world; 1 = this process alone, no "
+             "collective)",
     )
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument(
@@ -168,23 +184,6 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     return _parser().parse_args(argv)
 
 
-def _refuse_unported(args: argparse.Namespace) -> None:
-    """Flags whose modules are not ported yet exit non-zero, naming the
-    module; nothing falls back to another path."""
-    if args.offline or args.oracle_focals:
-        raise SystemExit(
-            "--offline / --oracle-focals need ptzjax_torch.dist (the sharded "
-            "frontend and bundle adjustment of ptzjax/dist.py), which is not "
-            "ported yet"
-        )
-    if args.tracker == "homography":
-        raise SystemExit(
-            "--tracker homography needs ptzjax_torch.baselines (the "
-            "homography-EKF baseline of ptzjax/baselines.py), which is not "
-            "ported yet"
-        )
-
-
 class Inputs(NamedTuple):
     """What a mode hands the loop. Exactly one of ``imgs`` (the fused
     from-pixels path) and ``feats`` (feature tables) is set."""
@@ -201,8 +200,8 @@ class Inputs(NamedTuple):
 class RunResult(NamedTuple):
     summary: dict[str, Any]
     records: list[dict[str, Any]]
-    ba: dict[str, float] | None    # bundle_adjust's costs with --ba
-    state: SlamState
+    ba: dict[str, float] | None    # the BA costs with --ba or --offline
+    state: Any                     # SlamState (VOState for --tracker homography)
     forest_frames: list[int]       # frames the forest relocalized on the host
 
 
@@ -295,7 +294,8 @@ def assemble(args: argparse.Namespace) -> Inputs:
 def image_inputs(args, cfg: SLAMConfig, intr: Intrinsics, gt, imgs, masks=None, meta=None) -> Inputs:
     """Frames (T, H, W) -> the loop's inputs: the descriptor zoom
     normalization resolved (from ``gt[0]`` or --desc-f-ref), and for
-    ``--frontend cv2`` the OpenCV feature tables staged on the host."""
+    ``--frontend cv2`` or ``--tracker homography`` the feature tables
+    staged frame by frame."""
     cfg = _resolve_f_ref(cfg, args, gt)
     feats = _stage_image_features(args, cfg, imgs, masks)
     return Inputs(cfg, intr, gt, imgs=imgs if feats is None else None, masks=masks, feats=feats, meta=meta)
@@ -312,21 +312,43 @@ def _resolve_f_ref(cfg: SLAMConfig, args, gt) -> SLAMConfig:
 
 
 def _stage_image_features(args, cfg, imgs, masks) -> list | None:
-    """Feature tables extracted frame by frame on the host with OpenCV for
-    ``--frontend cv2``; None for the port's own frontend, which runs inside
-    the loop (the fused path)."""
-    if args.frontend != "cv2":
+    """Feature tables extracted frame by frame before the loop: with OpenCV
+    on the host for ``--frontend cv2``, with the port's frontend on the
+    device for ``--tracker homography`` (no zoom normalization, as the
+    reference stages them; ``--klt`` carries the table with LK). None for
+    the port's frontend under the SLAM tracker, which runs inside the loop
+    (the fused path)."""
+    if args.frontend != "cv2" and args.tracker == "slam":
         return None
-    from ptzjax_torch.frontend_cv2 import extract_features_cv2, track_features_cv2
+    if args.frontend == "cv2":
+        from ptzjax_torch.frontend_cv2 import extract_features_cv2, track_features_cv2
+
+        def extract(img, mask):
+            return tuple(extract_features_cv2(img, cfg, mask=mask))
+
+        def track(prev_img, img, prev, mask):
+            return track_features_cv2(prev_img, img, *prev, cfg, mask=mask)[:3]
+    else:
+        from ptzjax_torch.frontend import track_features
+
+        dev = _device.resolve(args.device)
+
+        def extract(img, mask):
+            return extract_features(
+                torch.as_tensor(img, device=dev), cfg,
+                mask=None if mask is None else torch.as_tensor(mask, device=dev),
+            )
+
+        def track(prev_img, img, prev, mask):
+            return track_features(prev_img, img, prev[0], prev[2], cfg, mask=mask, device=dev)[:3]
 
     feats: list = []
     for k in range(len(imgs)):
         mask = None if masks is None else masks[k]
         if args.klt and k > 0:
-            xy, desc, valid, _ = track_features_cv2(imgs[k - 1], imgs[k], *feats[-1], cfg, mask=mask)
-            feats.append((xy, desc, valid))
+            feats.append(track(imgs[k - 1], imgs[k], feats[-1], mask))
         else:
-            feats.append(tuple(extract_features_cv2(imgs[k], cfg, mask=mask)))
+            feats.append(extract(imgs[k], mask))
     return feats
 
 
@@ -509,41 +531,192 @@ def run_sequence(args: argparse.Namespace, inp: Inputs) -> RunResult:
         state, ba_info = slam.bundle_adjust(state)
         print("BA:", json.dumps(ba_info))
 
-    # --- artifacts -------------------------------------------------------------
-    iolib.write_trajectory_jsonl(os.path.join(args.out, "frames.jsonl"), records)
     pose = np.stack([r["pose"] for r in records])
-    fidx = np.array([r["frame"] for r in records])
-    gt_r = gt[fidx]
-    np.savez(os.path.join(args.out, "trajectory.npz"), pose=pose, gt=gt_r)
+    gt_r = gt[np.array([r["frame"] for r in records])]
     summary = {
-        **evallib.trajectory_errors(pose, gt_r).as_dict(),
-        "reprojection_rmse_px": evallib.reprojection_rmse(
-            pose, gt_r, intr, args.width, args.height, device=device
-        ),
         "fps": (total - start_k) / wall,
         "frames_lost": sum(r["lost"] for r in records),
         "keyframes": sum(r["keyframe"] for r in records),
         "frontend": "fused" if fused else ("cv2" if args.frontend == "cv2" else "staged"),
         **(inp.meta or {}),
     }
+    _write_artifacts(args, records, pose, gt_r, intr, device, summary, os.path.basename(args.out.rstrip("/")))
+    return RunResult(summary, records, ba_info, state, forest_frames)
+
+
+def _stacked(feats, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-frame (xy, desc, valid) tables stacked on ``device``."""
+    return tuple(torch.stack([torch.as_tensor(f[i], device=device) for f in feats]) for i in range(3))
+
+
+def _write_artifacts(args, records, pose, gt_r, intr, device, summary, title) -> None:
+    """frames.jsonl, trajectory.npz, summary.json (and --plot's figure);
+    ``summary`` gains the trajectory errors and the reprojection RMSE."""
+    iolib.write_trajectory_jsonl(os.path.join(args.out, "frames.jsonl"), records)
+    np.savez(os.path.join(args.out, "trajectory.npz"), pose=pose, gt=gt_r)
+    summary.update({
+        **evallib.trajectory_errors(pose, gt_r).as_dict(),
+        "reprojection_rmse_px": evallib.reprojection_rmse(
+            pose, gt_r, intr, args.width, args.height, device=device
+        ),
+    })
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
     if args.plot:
         from ptzjax_torch.plots import plot_run
 
-        plot_run(
-            pose, gt_r, os.path.join(args.out, "trajectory.png"),
-            records=records, title=os.path.basename(args.out.rstrip("/")),
-        )
+        plot_run(pose, gt_r, os.path.join(args.out, "trajectory.png"), records=records, title=title)
     print(json.dumps(summary, indent=2))
-    return RunResult(summary, records, ba_info, state, forest_frames)
+
+
+def run_offline(args: argparse.Namespace, inp: Inputs) -> RunResult:
+    """Offline execution mode: (1) frame-parallel feature extraction over the
+    mesh (``dist.extract_features_sharded``; descriptors zoom-normalized at
+    the frame-0 focal, or at every frame's ground-truth focal with
+    --oracle-focals), or the staged tables; (2) the tracking loop over
+    chunks of ``--chunk`` frames, building the keyframe and ray stores; (3)
+    ray-sharded BA over the map (``dist.run_sharded``; Huber IRLS when
+    ``cfg.ba_huber_px > 0``), written back into the stores.
+
+    Under ``torchrun`` every process joins the process group and the mesh:
+    each extracts its block of frames and solves its block of rays, all run
+    the tracking loop, and rank 0 writes the artifacts. ``summary["fps"]``
+    is (frames - 1) over the frontend's and the loop's seconds."""
+    from ptzjax_torch import dist, mapstore
+
+    os.makedirs(args.out, exist_ok=True)
+    device = _device.resolve(args.device)
+    cfg, intr, gt = inp.cfg, inp.intr, inp.gt
+    print(f"device: {device}")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not torch.distributed.is_initialized():
+        dist.initialize_multihost(backend="nccl" if device.type == "cuda" else "gloo")
+    mesh = dist.make_mesh(args.mesh_devices or None)
+    if device.type == "cuda":
+        from ptzjax_torch.kernels import _build
+
+        _build.load()
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    sync()
+    t0 = time.perf_counter()
+    if inp.feats is None:
+        n = len(inp.imgs)
+        # the product path anchors the descriptor scale on the frame-0 focal
+        # only (what the bootstrap knows); per-frame focals are ground truth
+        focals = gt[:n, 2] if args.oracle_focals else np.full((n,), gt[0, 2])
+        xy_all, desc_all, valid_all = dist.extract_features_sharded(
+            inp.imgs, cfg, mesh, masks=inp.masks, focals=focals.astype(np.float32), device=device
+        )
+    else:
+        xy_all, desc_all, valid_all = _stacked(inp.feats, device)
+    sync()
+    t_frontend = time.perf_counter() - t0
+
+    slam = PTZSlam(cfg, intr, device=device)
+    state = slam.init(xy_all[0], desc_all[0], valid_all[0], gt[0])
+    total = len(xy_all)
+    chunk = max(1, args.chunk)
+    pending = []
+    t1 = time.perf_counter()
+    for k in range(1, total, chunk):
+        end = min(k + chunk, total)    # the last chunk runs short
+        state, infos = slam.run_segment(state, xy_all[k:end], desc_all[k:end], valid_all[k:end])
+        pending.append((k, infos))
+    sync()
+    t_track = time.perf_counter() - t1
+    records = [r for k, infos in pending for r in infos_to_dicts(infos, frame0=k)]
+
+    t2 = time.perf_counter()
+    prob = mapstore.build_ba_problem(state.kf, state.rays, max_views_per_ray=cfg.ba_max_views_per_ray)
+    res = dist.run_sharded(prob, intr, cfg, mesh)
+    m = prob.rays.shape[0]
+    kf, rays = mapstore.apply_ba_result(state.kf, state.rays, res.cams, res.rays[:m], prob.obs_w)
+    state = state._replace(kf=kf, rays=rays)
+    sync()
+    t_ba = time.perf_counter() - t2
+    ba_info = {"ba_cost_before": float(res.initial_cost), "ba_cost_after": float(res.cost)}
+
+    pose = np.stack([r["pose"] for r in records])
+    gt_r = gt[np.array([r["frame"] for r in records])]
+    summary = {
+        "fps": (total - 1) / (t_frontend + t_track),
+        "frames_lost": sum(r["lost"] for r in records),
+        "keyframes": sum(r["keyframe"] for r in records),
+        "mode": "offline",
+        "frontend_focals": (
+            "precomputed" if inp.feats is not None
+            else ("oracle_per_frame_gt" if args.oracle_focals else "f_ref_frame0")
+        ),
+        "mesh_devices": mesh.size,
+        "frontend_s": t_frontend,
+        "tracking_s": t_track,
+        "ba_s": t_ba,
+        **ba_info,
+        "ba_robust": cfg.ba_huber_px > 0,
+    }
+    if mesh.rank == 0:
+        title = f"{os.path.basename(args.out.rstrip('/'))} (offline)"
+        _write_artifacts(args, records, pose, gt_r, intr, device, summary, title)
+    return RunResult(summary, records, ba_info, state, [])
+
+
+def run_homography_baseline(args: argparse.Namespace, inp: Inputs) -> RunResult:
+    """The baseline tracker over the staged feature tables
+    (``baselines.track_homography_ekf``), with the SLAM path's artifacts.
+    ``summary["fps"]`` times the tracking only: the tables are staged, and
+    the kernel library loaded, before the clock."""
+    from ptzjax_torch.baselines import init_vo, track_homography_ekf
+
+    os.makedirs(args.out, exist_ok=True)
+    device = _device.resolve(args.device)
+    print(f"device: {device}")
+    if device.type == "cuda":
+        from ptzjax_torch.kernels import _build
+
+        _build.load()
+    cfg, intr, gt = inp.cfg, inp.intr, inp.gt
+    xy, desc, valid = _stacked(inp.feats, device)
+    state = init_vo(gt[0], xy[0], desc[0], valid[0], cfg, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    state, infos = track_homography_ekf(state, xy[1:], desc[1:], valid[1:], intr=intr, cfg=cfg)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+
+    pose = infos.pose.cpu().numpy()
+    n_inl = infos.num_inliers.cpu().numpy()
+    updated = infos.updated.cpu().numpy()
+    records = [
+        {
+            "frame": k + 1, "event": "track", "pose": pose[k], "num_matches": int(n_inl[k]),
+            "lost": not bool(updated[k]), "keyframe": False,
+        }
+        for k in range(len(pose))
+    ]
+    summary = {
+        "fps": len(pose) / wall,
+        "frames_lost": sum(r["lost"] for r in records),
+        "tracker": "homography",
+    }
+    title = f"{os.path.basename(args.out.rstrip('/'))} (homography baseline)"
+    _write_artifacts(args, records, pose, gt[1 : len(pose) + 1], intr, device, summary, title)
+    return RunResult(summary, records, None, state, [])
 
 
 def main(argv: list[str] | None = None) -> RunResult:
     args = parse_args(argv)
-    _refuse_unported(args)
     _device.resolve(args.device)   # no card and no --device cpu: raise before any work
-    return run_sequence(args, assemble(args))
+    inp = assemble(args)
+    if args.offline:
+        return run_offline(args, inp)
+    if args.tracker == "homography":
+        return run_homography_baseline(args, inp)
+    return run_sequence(args, inp)
 
 
 if __name__ == "__main__":

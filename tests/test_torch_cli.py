@@ -68,8 +68,8 @@ def assert_parity(got, want, frames=None):
         rec_j = [r for r in rec_j if r["frame"] in frames]
     else:
         assert sorted(sum_t) == sorted(sum_j)
-        assert sum_t["frames_lost"] == sum_j["frames_lost"] and sum_t["keyframes"] == sum_j["keyframes"]
-        assert sum_t["frontend"] == sum_j["frontend"]
+        for key in ("frames_lost", "keyframes", "frontend", "mode", "frontend_focals", "ba_robust", "tracker"):
+            assert sum_t.get(key) == sum_j.get(key), key
     assert [r["frame"] for r in rec_t] == [r["frame"] for r in rec_j] and rec_t
     assert [sorted(r) for r in rec_t] == [sorted(r) for r in rec_j]
     for key in ("lost", "keyframe", "event"):
@@ -241,24 +241,96 @@ def test_dataset_mode(tmp_path, boxes):
 
 
 @pytest.mark.parametrize(
-    "flags, module",
-    [(("--offline",), "ptzjax_torch.dist"), (("--oracle-focals",), "ptzjax_torch.dist"),
-     (("--tracker", "homography"), "ptzjax_torch.baselines")],
+    "argv",
+    [
+        ("--synthetic", "--frames", "30"),
+        ("--synthetic-images", "--frames", "12", *IMG),
+        ("--synthetic-images", "--frames", "12", "--klt", *IMG),
+    ],
+    ids=["features", "images", "images-klt"],
 )
-def test_unported_flags_exit_naming_the_module(tmp_path, flags, module):
-    with pytest.raises(SystemExit, match=module.replace(".", r"\.")) as err:
-        trun.main(["--synthetic", "--frames", "10", "--out", str(tmp_path), "--device", "cpu", *flags])
-    assert err.value.code not in (0, None)
-    assert not os.path.exists(tmp_path / "summary.json")
+def test_homography_baseline(tmp_path, argv):
+    """--tracker homography on the oracle features and on staged image
+    features (re-detect and KLT): the reference's flags, inlier counts and
+    poses."""
+    argv = (*argv, "--tracker", "homography")
+    got, want = port(tmp_path / "t", *argv), ref(tmp_path / "j", *argv)
+    assert_parity(got, want)
+    assert [r["num_matches"] for r in got[0]] == [r["num_matches"] for r in want[0]]
+    assert got[1]["tracker"] == "homography" and got[1]["frames_lost"] == 0
 
 
-def test_module_entry_point_exits_non_zero_on_an_unported_flag(tmp_path):
+def _offline_config(tmp_path) -> str:
+    """tests/test_dist.py's offline configuration at 640x360: keyframes
+    every 4 frames, so the final map holds several."""
+    return _config(tmp_path, small_cfg(keyframe_interval=4))
+
+
+OFFLINE = ("--synthetic-images", "--offline", "--frames", "14", "--width", "640", "--height", "360",
+           "--f0", "1100", "--f-amp", "60", "--pan-amp", "0.12", "--chunk", "8")
+
+
+@pytest.mark.parametrize(
+    "extra", [(), ("--oracle-focals",), ("--ba-huber", "2")], ids=["f_ref_frame0", "oracle-focals", "huber"]
+)
+def test_offline(tmp_path, extra):
+    """--offline: the port's sharded frontend (one process) and BA against
+    the reference on its 8-device CPU mesh (its results do not depend on the
+    shard count): flags and poses, and the BA costs within rtol 1e-4."""
+    argv = (*OFFLINE, "--config", _offline_config(tmp_path), *extra)
+    got, want = port(tmp_path / "t", *argv), ref(tmp_path / "j", *argv)
+    assert_parity(got, want)
+    (_, s_t), (_, s_j) = got, want
+    assert s_t["keyframes"] >= 2 and s_t["frames_lost"] == 0
+    assert s_t["mesh_devices"] == 1 and s_j["mesh_devices"] == 8
+    for key in ("ba_cost_before", "ba_cost_after"):
+        np.testing.assert_allclose(s_t[key], s_j[key], rtol=1e-4)
+    assert s_t["ba_cost_after"] <= s_t["ba_cost_before"]
+
+
+def test_offline_on_staged_features(tmp_path):
+    """--offline on the oracle features (--synthetic): the tables are
+    "precomputed", tracking and BA run as above."""
+    argv = ("--synthetic", "--offline", "--frames", "30", "--chunk", "16", "--ba-huber", "2")
+    got, want = port(tmp_path / "t", *argv), ref(tmp_path / "j", *argv)
+    assert_parity(got, want)
+    assert got[1]["frontend_focals"] == "precomputed"
+
+
+def test_torchrun_offline_two_processes(tmp_path):
+    """``torchrun --standalone --nproc-per-node 2 -m ptzjax_torch.run
+    --offline``: both processes join a gloo world, each extracts its half
+    of the frames and solves its half of the rays, rank 0 writes the
+    artifacts; the records equal the one-process run's, the BA costs within
+    rtol 1e-4."""
+    argv = (*OFFLINE, "--config", _offline_config(tmp_path), "--device", "cpu")
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
     proc = subprocess.run(
-        [sys.executable, "-m", "ptzjax_torch.run", "--synthetic", "--offline", "--out", str(tmp_path), "--device", "cpu"],
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "ptzjax_torch.run", *argv, "--out", str(tmp_path / "two")],
+        capture_output=True, text=True, timeout=240, env=env,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    two = _read(tmp_path / "two")
+    one = port(tmp_path / "one", *argv[:-2])
+    assert two[1]["mesh_devices"] == 2 and one[1]["mesh_devices"] == 1
+    assert_parity(two, one)
+    for key in ("ba_cost_before", "ba_cost_after"):
+        np.testing.assert_allclose(two[1][key], one[1][key], rtol=1e-4)
+
+
+def test_module_entry_point_runs_offline(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-m", "ptzjax_torch.run", "--synthetic", "--frames", "12", "--offline",
+         "--mesh-devices", "1", "--out", str(tmp_path), "--device", "cpu"],
         capture_output=True, text=True, timeout=120,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     )
-    assert proc.returncode != 0 and "ptzjax_torch.dist" in proc.stderr
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    with open(tmp_path / "summary.json") as f:
+        summary = json.load(f)
+    assert summary["mode"] == "offline" and summary["mesh_devices"] == 1 and summary["frames_lost"] == 0
 
 
 def test_runs_on_the_card_by_default(tmp_path):

@@ -449,3 +449,103 @@ def test_forest_reloc_on_card_matches_cpu(cuda_device):
         poses[str(dev)] = res.pose.cpu().numpy()
     d = np.abs(poses["cpu"] - poses[str(cuda_device)])
     assert d[:2].max() < 5e-4 and d[2] < 2.0
+
+
+def test_homography_baseline_on_card_matches_cpu(cuda_device):
+    """The baseline over features staged on each device: the card (the
+    matcher kernel at 160 x 160, once a frame) takes the CPU's decisions."""
+    from ptzjax_torch.baselines import init_vo, track_homography_ekf
+    from ptzjax_torch.frontend import extract_sequence
+
+    imgs, cams, intr = _render(12)
+    cfg = SLAMConfig(image_width=W, image_height=H, max_keypoints=160, min_inliers=10)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        xy, desc, valid = extract_sequence(imgs, cfg, device=dev)
+        state = init_vo(cams[0], xy[0], desc[0], valid[0], cfg)
+        before = tkm.launches
+        _, infos = track_homography_ekf(state, xy[1:], desc[1:], valid[1:], intr=intr, cfg=cfg)
+        out[str(dev)] = [v.cpu().numpy() for v in infos], tkm.launches - before
+    (info_c, _), (info_g, n_match) = out["cpu"], out[str(cuda_device)]
+    assert n_match == len(imgs) - 1
+    np.testing.assert_array_equal(info_g[2], info_c[2])
+    np.testing.assert_array_equal(info_g[1], info_c[1])
+    assert info_g[2].all()
+    dpose = np.abs(info_g[0] - info_c[0])
+    assert dpose[:, :2].max() < 5e-4 and dpose[:, 2].max() < 2.0
+
+
+def test_run_sharded_one_nccl_rank_is_ba_run(cuda_device, tmp_path):
+    """A one-rank NCCL group on the card: ``run_sharded`` through a mesh that
+    holds the group (its all-reduces and all-gather on NCCL) is bitwise
+    ``ba.run`` without one."""
+    import torch.distributed as tdist
+
+    from ptzjax_torch import ba, dist
+    from ptzjax_torch.geometry import project_rays
+
+    seq = synth.make_sequence(num_frames=60, num_rays=400, seed=2)
+    rng = np.random.default_rng(2)
+    frames = np.linspace(0, 59, 5).astype(int)
+    obs_cam = rng.integers(0, 5, (200, 4)).astype(np.int32)
+    rays = seq.rays[:200].astype(np.float32)
+    cams = seq.cameras[frames]
+    pix = project_rays(
+        torch.from_numpy(cams[obs_cam]), torch.from_numpy(rays)[:, None, None, :].expand(200, 4, 1, 2), seq.intr
+    )[:, :, 0] + torch.from_numpy(rng.normal(0, 0.5, (200, 4, 2)).astype(np.float32))
+    prob = ba.BAProblem(
+        cams=torch.from_numpy(cams + rng.normal(0, 2e-3, cams.shape).astype(np.float32)),
+        rays=torch.from_numpy(rays + rng.normal(0, 1e-3, rays.shape).astype(np.float32)),
+        obs_pix=pix, obs_cam=torch.from_numpy(obs_cam), obs_w=torch.ones((200, 4)),
+        cam_free=torch.tensor([False, True, True, True, True]),
+    )
+    prob = ba.BAProblem(*(v.to(cuda_device) for v in prob))
+    dist.initialize_multihost(f"file://{tmp_path / 'store'}", world_size=1, rank=0, backend="nccl", timeout_s=60)
+    try:
+        mesh = dist.Mesh(("obs",), (1,), None, tdist.group.WORLD)
+        for huber in (0.0, 2.0):
+            cfg = SLAMConfig(ba_iters=10, ba_huber_px=huber)
+            want = ba.run_robust(prob, seq.intr, cfg) if huber else ba.run(prob, seq.intr, cfg)
+            got = dist.run_sharded(prob, seq.intr, cfg, mesh)
+            assert float(want.cost) < float(want.initial_cost)
+            for a, b in zip(got, want):
+                assert a.device == b.device and torch.equal(a, b)
+    finally:
+        tdist.destroy_process_group()
+
+
+def test_torchrun_offline_on_every_card(cuda_device, tmp_path):
+    """``torchrun --nproc-per-node <cards> -m ptzjax_torch.run --offline``:
+    one process a card, NCCL between them; the records equal the
+    one-process run's (each frame's features are those of a per-frame call,
+    so tracking is the same), the BA costs within rtol 1e-4. Skips on a
+    machine with one card."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards")
+    argv = ["--synthetic-images", "--offline", "--frames", "48", "--width", "640", "--height", "360",
+            "--f0", "1100", "--f-amp", "60", "--pan-amp", "0.12"]
+    cfg = str(tmp_path / "cfg.json")
+    with open(cfg, "w") as f:
+        f.write(SLAMConfig(max_keypoints=256, max_rays=128, keyframe_interval=8).to_json())
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = {}
+    for n, launcher in ((cards, ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(cards)]), (1, [])):
+        proc = subprocess.run(
+            [sys.executable, *launcher, "-m", "ptzjax_torch.run", *argv, "--config", cfg, "--out", str(tmp_path / str(n))],
+            capture_output=True, text=True, timeout=600, cwd=root,
+        )
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        with open(tmp_path / str(n) / "summary.json") as f:
+            out[n] = json.load(f), np.load(tmp_path / str(n) / "trajectory.npz")["pose"]
+    (s_n, pose_n), (s_1, pose_1) = out[cards], out[1]
+    assert s_n["mesh_devices"] == cards and s_1["mesh_devices"] == 1
+    assert s_n["frames_lost"] == s_1["frames_lost"] == 0 and s_n["keyframes"] == s_1["keyframes"] >= 2
+    np.testing.assert_array_equal(pose_n, pose_1)
+    for key in ("ba_cost_before", "ba_cost_after"):
+        np.testing.assert_allclose(s_n[key], s_1[key], rtol=1e-4)
