@@ -20,7 +20,8 @@ Phases, each of which raises (non-zero exit) on failure:
    floor everywhere, off at the survivors), then the whole
    ``detect_keypoints`` call: device time and kernels per call; (b) the
    window gather, 512 windows at win 46 and 18 (descriptors) and at the LK
-   shapes: sides 16 and 24 at 720p and side 24 at the 90 x 160 level;
+   shapes that its plain route still gathers: sides 16 and 24 at 720p and
+   side 24 at the 90 x 160 level;
    (c) the matcher at 512 x 256
    gated at 60 px (tracking), 512 x 512 mutual and ungated (the homography
    baseline, frame to frame), 512 x
@@ -34,8 +35,11 @@ Phases, each of which raises (non-zero exit) on failure:
    larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32) and
    the share of it reached, and for D the time of ``torch.linalg.cholesky_ex``;
    (e) the LK stage: ``lk_track`` at the LK bench shape (a 720p pair, 512
-   keypoints, 4 levels, the backward check) on the card against the CPU
-   (``tracked`` equal, ``xy`` within 1e-3 px), its device time, kernels a
+   keypoints, 4 levels, the backward check) through kernel E (one launch
+   a call, no window gather) against the plain route on the card and
+   against the CPU (``tracked`` equal, ``xy`` within 1e-3 px on tracked
+   rows); E alone on the call's pyramids beside the plain route (event and
+   device time, bound, share); the whole call's device time, kernels a
    call and event time;
 4. the slice: ``bench.py``'s 720p sequence, continued from 120 to 192
    frames (one full period of its pan sweep) so that the product defaults'
@@ -56,12 +60,14 @@ Phases, each of which raises (non-zero exit) on failure:
    sites' counts (the matcher also once per relocalization frame). (d) The
    4c sequence again, in each reloc mode, over 40 tracked frames and the
    relocalization frames, and the sequence in KLT mode over 40 tracked
-   frames: wall time per frame (one pass) and device time and kernels per
-   frame (a second pass, under the profiler). (e) The whole sequence in KLT
-   mode (``init`` + ``run_segment_pixels_klt`` seeded with frame 0's
-   features): no lost frame, pan MAE < 3e-3 rad, windowed BA ran, the
-   counters equal to the call sites' counts (window gathers 1 + 11 a KLT
-   frame), ``eval.evaluate_run``'s report. (f) ``PTZSlam.bundle_adjust``
+   frames: wall time per frame (one pass, its launches counted: one of each
+   kernel a KLT frame) and device time and kernels per frame (a second
+   pass, under the profiler). (e) The whole sequence in KLT mode (``init``
+   + ``run_segment_pixels_klt`` seeded with frame 0's features): no lost
+   frame, pan MAE < 3e-3 rad, windowed BA ran, the counters equal to the
+   call sites' counts (kernel E once a KLT frame, the window gather once at
+   ``init`` and once a frame for the descriptors), ``eval.evaluate_run``'s
+   report. (f) ``PTZSlam.bundle_adjust``
    on 4b's final state, plain and robust (cost after <= cost before,
    finite), and ``ba.run`` / ``ba.run_robust`` on the BA bench problem (32
    cameras, 4,096 rays, 24,576 observations, 20 LM iterations) beside
@@ -102,9 +108,9 @@ Phases, each of which raises (non-zero exit) on failure:
    ``ba.run`` / ``ba.run_robust`` without a group, on the BA bench problem.
 
 The line before the last is one JSON object with the kernels' numbers
-(``launches`` from run 4b, ``launches_by_path`` from 4b, both 4c runs, 4e
-and the runs of 5a-5c and 5e-5g); the last line is ``{"ok": true,
-"device": {...}}``.
+(``launches`` from run 4b, and for kernel E, which only KLT mode runs, from
+4e; ``launches_by_path`` from 4b, both 4c runs, 4e and the runs of 5a-5c and
+5e-5g); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -225,16 +231,17 @@ def repeat_until_same(trace, count, tries: int = 2):
     return seen[key]
 
 
-def timings(fn, plain, nbytes: float, ops: float, library=None) -> dict:
+def timings(fn, plain, nbytes: float, ops: float, library=None, plain_batch: int = 50) -> dict:
     """Event and device times of the kernel ``fn`` (one kernel a call, which
-    ``device_time`` checks), its plain version, and the one-call library
-    equivalent where there is one, with the bound."""
+    ``device_time`` checks), its plain version (over ``plain_batch`` calls a
+    timing), and the one-call library equivalent where there is one, with
+    the bound."""
     dev_ms, names = device_time(fn, per_call=1)
     check(len(names) == 1, f"{len(names)} kernel names in one kernel a call: {names}")
     b_ms, b_by = bound(nbytes, ops)
     out = {
-        "ms": time_ms(fn), "device_ms": dev_ms, "plain_ms": time_ms(plain),
-        "plain_device_ms": device_time(plain)[0], "bound_ms": b_ms, "bound_by": b_by,
+        "ms": time_ms(fn), "device_ms": dev_ms, "plain_ms": time_ms(plain, batch=plain_batch),
+        "plain_device_ms": device_time(plain, batch=plain_batch)[0], "bound_ms": b_ms, "bound_by": b_by,
         "bound_share": b_ms / dev_ms,
         "library_ms": None if library is None else time_ms(library),
     }
@@ -459,38 +466,137 @@ def lk_bench_inputs():
     return img0, img1, xy, np.ones(512, bool)
 
 
-def lk_stage(dev, card) -> None:
+LK_OPTS = dict(patch=13, iters=8, min_eig=1e-3, max_residual=0.5, fb_check=True, fb_tol=1.0, border=2.0)
+
+
+def _window_pixels(img: torch.Tensor, tops: torch.Tensor, lefts: torch.Tensor, side: int) -> torch.Tensor:
+    """Flat indices of the pixels of ``img`` that side x side windows at
+    image (top, left), rows and columns clamped into the image, cover."""
+    h, w = img.shape
+    r = torch.arange(side, device=img.device)
+    rows = (tops.long()[:, None] + r).clamp(0, h - 1)
+    cols = (lefts.long()[:, None] + r).clamp(0, w - 1)
+    return (rows[:, :, None] * w + cols[:, None, :]).reshape(-1)
+
+
+def lk_work(prev_pyr, next_pyr, xy, valid, patch, iters, min_eig, max_residual, fb_check, border, **_) -> tuple[int, int]:
+    """(bytes, fp32 operations) that kernel E needs for these inputs. Bytes:
+    the pixels its windows cover in each level of each frame, each read
+    once (the windows follow this run's guesses, which the plain route's
+    own steps give), 9 B of position and flag read and 13 B of results
+    written a keypoint. Operations, for each pass E makes over a keypoint
+    (every level for a finite position, the backward check where the
+    forward tests passed): the template blend, (patch + 2)^2 x 11 (two
+    products a tap, three sums), the gradients, G and the std, patch^2 x
+    14, 12 a sample and Newton step (the 4-tap sample's 4 products and 3
+    sums, the difference, 2 products and 2 sums into b) and 10 a sample
+    for the residual."""
+    from ptzjax_torch.kernels import flow as fl
+
+    levels = len(prev_pyr)
+    finite = torch.isfinite(xy).all(-1)
+    xs = xy[finite]
+    pixels: dict = {}
+    guess = xs / 2.0 ** (levels - 1)
+    side_s, anchor = patch + 2 * fl._DISP + 1, fl._DISP + patch // 2
+    pad_t = (patch + 2) // 2 + 1
+    coarse = max(3, iters // 2)
+    steps = 0
+    for lvl in range(levels - 1, -1, -1):
+        at = xs / 2.0**lvl
+        _, ys_t, xs_t, _, _ = fl._patch_starts(prev_pyr[lvl], at, patch + 2)
+        pixels.setdefault(("prev", lvl), []).append(_window_pixels(prev_pyr[lvl], ys_t - pad_t, xs_t - pad_t, patch + 3))
+        _, ys_s, xs_s = fl._search_starts(next_pyr[lvl], guess, side_s, anchor)
+        pixels.setdefault(("next", lvl), []).append(_window_pixels(next_pyr[lvl], ys_s - side_s, xs_s - side_s, side_s))
+        n_it = iters if lvl == 0 else coarse
+        guess, eig, resid = fl._lk_level(prev_pyr[lvl], next_pyr[lvl], at, guess, patch, n_it)
+        steps += n_it
+        if lvl > 0:
+            guess = guess * 2.0
+    passes = levels * int(finite.sum())
+    h, w = next_pyr[0].shape
+    ok = (
+        valid[finite] & (eig > min_eig) & (resid < max_residual) & (guess[:, 0] >= border)
+        & (guess[:, 0] <= w - 1 - border) & (guess[:, 1] >= border) & (guess[:, 1] <= h - 1 - border)
+        & torch.isfinite(guess).all(-1)
+    )
+    n_fb = int(ok.sum()) if fb_check else 0
+    if n_fb:
+        _, ys_t, xs_t, _, _ = fl._patch_starts(next_pyr[0], guess[ok], patch + 2)
+        pixels[("next", 0)].append(_window_pixels(next_pyr[0], ys_t - pad_t, xs_t - pad_t, patch + 3))
+        _, ys_s, xs_s = fl._search_starts(prev_pyr[0], xs[ok], side_s, anchor)
+        pixels[("prev", 0)].append(_window_pixels(prev_pyr[0], ys_s - side_s, xs_s - side_s, side_s))
+    covered = sum(torch.unique(torch.cat(v)).numel() for v in pixels.values())
+    nbytes = 4 * covered + 22 * xy.shape[0]
+    per_pass = (patch + 2) ** 2 * 11 + patch**2 * 14
+    ops = (
+        int(finite.sum()) * (levels * per_pass + patch**2 * (12 * steps + 10 * levels))
+        + n_fb * (per_pass + patch**2 * (12 * iters + 10))
+    )
+    return nbytes, ops
+
+
+def lk_stage(dev, card) -> dict:
     """3e: ``lk_track`` at the LK bench shape (4 levels, the backward check)
-    on the card against the same code on the CPU: ``tracked`` equal, ``xy``
-    within 1e-3 px on tracked rows; then its device time, kernels a call and
-    event time."""
+    through kernel E, one launch and no window gather a call, against the
+    plain route on the card and the same code on the CPU: ``tracked``
+    equal, ``xy`` within 1e-3 px on tracked rows and the input position on
+    the others. Then E alone on the call's pyramids beside the plain route,
+    and the whole call's device time, kernels a call and event time.
+    Returns E's numbers."""
     from ptzjax_torch.kernels import flow as fl
     from ptzjax_torch.kernels import window_gather as wg
 
     inputs = lk_bench_inputs()
     on_card = [torch.from_numpy(a).to(dev) for a in inputs]
-    before = wg.launches
+    g0, e0 = wg.launches, fl.launches
     got = fl.lk_track(*on_card)
-    gathers = wg.launches - before
+    gathers, kernel_e = wg.launches - g0, fl.launches - e0
+    plain = fl.lk_track(*on_card, plain=True)
     ref = fl.lk_track(*(torch.from_numpy(a) for a in inputs))
     torch.cuda.synchronize()
-    tracked = ref.tracked
-    check(torch.equal(got.tracked.cpu(), tracked), "lk_track: tracked differs between the card and the CPU")
-    err = float((got.xy.cpu()[tracked] - ref.xy[tracked]).abs().max())
-    check(err < 1e-3, f"lk_track: xy differs by {err} px on tracked rows (tolerance 1e-3)")
+    check(kernel_e == 1 and gathers == 0, f"lk_track: {kernel_e} launches of E and {gathers} of B a call, 1 and 0 expected")
+    tracked = plain.tracked
+    check(torch.equal(got.tracked, tracked), "lk_track: tracked differs between kernel E and the plain route")
+    err = float((got.xy[tracked] - plain.xy[tracked]).abs().max())
+    check(err < 1e-3, f"lk_track: E's xy differs from the plain route by {err} px on tracked rows (tolerance 1e-3)")
+    check(torch.equal(got.xy[~tracked], on_card[2][~tracked]), "lk_track: an untracked row left its input position")
+    res_err = float((got.residual[tracked] - plain.residual[tracked]).abs().max())
+    check(torch.equal(got.tracked.cpu(), ref.tracked), "lk_track: tracked differs between the card and the CPU")
+    err_cpu = float((got.xy.cpu()[ref.tracked] - ref.xy[ref.tracked]).abs().max())
+    check(err_cpu < 1e-3, f"lk_track: xy differs from the CPU by {err_cpu} px on tracked rows (tolerance 1e-3)")
     check(int(tracked.sum()) > 400, f"lk_track: only {int(tracked.sum())} of 512 tracked")
-    check(gathers == 2 * 4 + 2, f"lk_track: {gathers} window gathers a call, 10 expected")
+
+    xy, valid = on_card[2], on_card[3]
+    prev_pyr = fl.build_pyramid(on_card[0], 4)
+    next_pyr = fl.build_pyramid(on_card[1], 4)
+    nbytes, ops = lk_work(prev_pyr, next_pyr, xy, valid, **LK_OPTS)
+    t = timings(
+        lambda: fl.lk_pyramids(prev_pyr, next_pyr, xy, valid, **LK_OPTS),
+        lambda: fl.lk_pyramids_plain(prev_pyr, next_pyr, xy, valid, **LK_OPTS),
+        nbytes, ops, plain_batch=10,
+    )
+    t["max_abs_err"] = err
 
     def call():
         return fl.lk_track(*on_card)
 
     dev_ms, names = device_time(call, batch=20)
     print(
-        f"lk_track 512 kp 720x1280, 4 levels + backward check: {int(tracked.sum())}/512 tracked, "
-        f"tracked equal and xy max_abs_err {err} px vs the CPU (tolerance 1e-3); {gathers} window "
-        f"gathers a call; {dev_ms:.4f} ms device, {sum(names.values()) / 20:g} kernels a call, "
+        f"lk_track 512 kp 720x1280, 4 levels + backward check: {int(tracked.sum())}/512 tracked; kernel E "
+        f"{kernel_e} launch and {gathers} window gathers a call; against the plain route on the card tracked "
+        f"equal, xy max_abs_err {err} px, residual max_abs_err {res_err} (tracked rows); against the CPU "
+        f"tracked equal, xy max_abs_err {err_cpu} px (tolerance 1e-3) [{card}]"
+    )
+    print(f"kernel E (lk_pyramids) 512 kp, 4 levels + backward check, {nbytes} B, {ops} flop: {describe(t)} [{card}]")
+    print(
+        f"lk_track stage 512 kp 720x1280: {dev_ms:.4f} ms device, {sum(names.values()) / 20:g} kernels a call, "
         f"{time_ms(call, reps=3, batch=20):.4f} ms event [{card}]"
     )
+    return {
+        "name": "lk_track", "route": "cuda", "source": "ptzjax_torch/csrc/lk_flow.cu",
+        "replaces": "ptzjax/kernels/window_pallas.py:67", **t,
+    }
 
 
 def _unit(x: np.ndarray) -> np.ndarray:
@@ -651,8 +757,8 @@ def cholesky_phase(dev, card: str) -> dict:
     }
 
 
-KERNEL_MODULES = ("harris_nms", "window_gather", "match", "cholesky")
-COUNTER_NAMES = ("harris_nms", "gather_windows", "match_scores", "cholesky")
+KERNEL_MODULES = ("harris_nms", "window_gather", "match", "cholesky", "flow")
+COUNTER_NAMES = ("harris_nms", "gather_windows", "match_scores", "cholesky", "lk_track")
 
 
 def reset_counts() -> None:
@@ -668,31 +774,30 @@ def read_counts() -> dict:
     }
 
 
-def expected_counts(infos, klt_levels: int | None = None) -> dict:
-    """What the call sites launch in ``run_slice`` (or, with ``klt_levels``,
-    in ``run_klt``): detection on every frame (``init``'s included); window
-    gathers once a frame in re-detect mode, and in KLT mode once at ``init``
-    and 2 per pyramid level + 2 for the backward check + 1 for the
-    descriptors on every later frame; the matcher on every tracked frame,
-    every keyframe insert (the bootstrap's included) and every
-    relocalization frame; the Cholesky on every tracked frame."""
-    return _expected(infos.event.cpu().numpy(), infos.keyframe.cpu().numpy(), klt_levels)
+def expected_counts(infos, klt: bool = False) -> dict:
+    """What the call sites launch in ``run_slice`` (or, with ``klt``, in
+    ``run_klt``): detection and the window gather (the descriptors) on
+    every frame (``init``'s included); in KLT mode kernel E once on every
+    later frame; the matcher on every tracked frame, every keyframe insert
+    (the bootstrap's included) and every relocalization frame; the Cholesky
+    on every tracked frame."""
+    return _expected(infos.event.cpu().numpy(), infos.keyframe.cpu().numpy(), klt)
 
 
-def expected_from_records(records: list, klt_levels: int | None = None) -> dict:
+def expected_from_records(records: list, klt: bool = False) -> dict:
     """``expected_counts`` for the CLI's per-frame records."""
     event = np.array([0 if r["event"] == "track" else 1 for r in records])
-    return _expected(event, np.array([r["keyframe"] for r in records]), klt_levels)
+    return _expected(event, np.array([r["keyframe"] for r in records]), klt)
 
 
-def _expected(event: np.ndarray, keyframe: np.ndarray, klt_levels: int | None) -> dict:
+def _expected(event: np.ndarray, keyframe: np.ndarray, klt: bool) -> dict:
     tracked, relocs = int((event == 0).sum()), int((event == 1).sum())
     inserts = int(keyframe.sum())
     frames = len(event) + 1
-    gathers = frames if klt_levels is None else 1 + (2 * klt_levels + 3) * (frames - 1)
     return {
-        "harris_nms": frames, "gather_windows": gathers,
+        "harris_nms": frames, "gather_windows": frames,
         "match_scores": tracked + inserts + 1 + relocs, "cholesky": tracked,
+        "lk_track": frames - 1 if klt else 0,
     }
 
 
@@ -810,7 +915,6 @@ def klt_phase(imgs: torch.Tensor, cams, intr, card: str):
     """4e: the whole sequence in KLT mode, counted; returns the launch
     counts."""
     from ptzjax_torch import eval as ev
-    from ptzjax_torch.config import SLAMConfig
 
     frames = imgs.shape[0]
     reset_counts()
@@ -820,9 +924,10 @@ def klt_phase(imgs: torch.Tensor, cams, intr, card: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    want = expected_counts(infos, klt_levels=SLAMConfig().flow_levels)
+    want = expected_counts(infos, klt=True)
     print(f"launches over the {frames}-frame KLT path: {counts}")
     check(counts == want, f"KLT: launches {counts}, call sites give {want}")
+    check(all(v > 0 for v in counts.values()), f"KLT: a kernel never launched: {counts}")
     pose = infos.pose.cpu().numpy()
     lost = infos.lost.cpu().numpy()
     check(pose.shape == (frames - 1, 3) and np.isfinite(pose).all(), "KLT: poses not finite / wrong shape")
@@ -839,9 +944,11 @@ def klt_phase(imgs: torch.Tensor, cams, intr, card: str):
     return counts
 
 
-def klt_frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
+def klt_frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> dict:
     """4d, KLT mode: 40 tracked frames (40-79) run one per call with a sync
-    after each; one pass for the wall clock, a second under the profiler."""
+    after each; one pass for the wall clock, its launches counted (each
+    kernel once a frame), a second under the profiler. Returns the
+    counts."""
     from ptzjax_torch.config import SLAMConfig
     from ptzjax_torch.frontend import extract_features
     from ptzjax_torch.slam import PTZSlam
@@ -855,6 +962,7 @@ def klt_frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
         state, _, xy, valid = slam.run_segment_pixels_klt(state, imgs[1:frames.start], imgs[0], xy, valid)
         torch.cuda.synchronize()
         walls, events = [], []
+        reset_counts()
         with profiled() if traced else contextlib.nullcontext() as prof:
             for f in frames:
                 t0 = time.perf_counter()
@@ -863,9 +971,12 @@ def klt_frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
                 walls.append(time.perf_counter() - t0)
                 events.append(int(info.event[0]) + 2 * int(info.keyframe[0]))
         check(all(e == 0 for e in events), f"4d KLT: frames {frames} ran events {events}")
-        return float(np.median(walls)) * 1e3, prof
+        return float(np.median(walls)) * 1e3, prof, read_counts()
 
-    wall, _ = run(False)
+    wall, _, counts = run(False)
+    want = dict.fromkeys(COUNTER_NAMES, len(frames))
+    print(f"4d KLT tracked frames {frames.start}-{frames.stop - 1}: launches {counts}")
+    check(counts == want, f"4d KLT: launches {counts}, call sites give {want}")
     kernels = repeat_until_same(lambda: device_kernels(run(True)[1]), lambda k: (len(k),))
     check(kernels, "the profiler recorded no device time")
     by_name: dict = {}
@@ -881,6 +992,7 @@ def klt_frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
         + "; ".join(f"{name[:60]} {us / nf / 1e3:.4f} ms" for name, us in top)
         + f" [{card}]"
     )
+    return counts
 
 
 def bench_ba_problem(dev, k: int = 32, m: int = 4096, c: int = 6, seed: int = 0):
@@ -1043,12 +1155,11 @@ def cli_run(argv: list[str]):
 def cli_phase(tmp: str, card: str) -> dict:
     """5a: the CLI at 720p, 192 frames, with --ba and checkpoints; then the
     same in KLT mode at 96 frames. Returns the launch counts by path."""
-    from ptzjax_torch.config import SLAMConfig
 
     by_path = {}
-    for name, frames, extra, klt_levels in (
-        ("cli", 192, ("--ba", "--checkpoint-every", "64"), None),
-        ("cli_klt", 96, ("--klt",), SLAMConfig().flow_levels),
+    for name, frames, extra, klt in (
+        ("cli", 192, ("--ba", "--checkpoint-every", "64"), False),
+        ("cli_klt", 96, ("--klt",), True),
     ):
         t0 = time.perf_counter()
         out = os.path.join(tmp, name)
@@ -1056,7 +1167,7 @@ def cli_phase(tmp: str, card: str) -> dict:
         recs, summary = res.records, res.summary
         traj = np.load(os.path.join(out, "trajectory.npz"))
         mae = float(np.abs(traj["pose"][:, 0] - traj["gt"][:, 0]).mean())
-        want = expected_from_records(recs, klt_levels)
+        want = expected_from_records(recs, klt)
         with open(os.path.join(out, "frames.jsonl")) as f:
             lines = sum(1 for _ in f)
         print(
@@ -1220,7 +1331,7 @@ def homography_phase(tmp: str, card: str) -> dict:
     err = np.abs(pose - traj["gt"])
     mae20 = float(err[:20, 0].mean())
     inliers = np.array([r["num_matches"] for r in recs])
-    want = {"harris_nms": 96, "gather_windows": 96, "match_scores": 95, "cholesky": 0}
+    want = {"harris_nms": 96, "gather_windows": 96, "match_scores": 95, "cholesky": 0, "lk_track": 0}
     print(
         f"5e homography: 96 frames 720p: rejected {summary['frames_lost']}, pan MAE first 20 frames {mae20} rad, "
         f"all frames {float(err[:, 0].mean())} rad; inliers a frame mean {float(inliers.mean()):.1f}, min "
@@ -1374,8 +1485,8 @@ def main() -> int:
     kernels = kernel_phase(imgs[0], card)
     kernels.append(matcher_phase(dev, card))
     kernels.append(cholesky_phase(dev, card))
-    # 3e. the LK stage
-    lk_stage(dev, card)
+    # 3e. the LK stage (kernel E)
+    kernels.append(lk_stage(dev, card))
 
     # 4a. the first frames through the same code on the CPU (plain
     # versions) and on the card, in re-detect and in KLT mode: the
@@ -1405,7 +1516,8 @@ def main() -> int:
     want = expected_counts(infos)
     print(f"launches over the {frames}-frame main path: {launches}")
     check(launches == want, f"launches {launches}, call sites give {want}")
-    check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+    # kernel E runs in KLT mode only (4e)
+    check(all(v > 0 for k, v in launches.items() if k != "lk_track"), f"a kernel never launched: {launches}")
 
     pose = infos.pose.cpu().numpy()
     lost = infos.lost.cpu().numpy()
@@ -1433,11 +1545,11 @@ def main() -> int:
     # 4e. the sequence in KLT mode, counted
     by_path["klt"] = klt_phase(imgs, cams, intr, card)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = (by_path["klt"] if k["name"] == "lk_track" else launches)[k["name"]]
 
     # 4d. device time per frame kind (after the counted runs)
     frame_phase(imgs, cams, intr, card)
-    klt_frame_phase(imgs, cams, intr, card)
+    by_path["klt_frames_40_79"] = klt_frame_phase(imgs, cams, intr, card)
 
     # 4f. whole-map BA on the 4b state, and the BA bench problem
     ba_phase(state, intr, dev, card)

@@ -2,19 +2,25 @@
 Port of ``ptzjax/kernels/flow.py`` (the KLT frontend mode).
 
 Design, as in the reference:
-  * pyramid: ``levels`` blur-then-2x-mean-pool downsamples.
+  * pyramid: ``levels`` blur-then-2x-mean-pool downsamples (torch).
   * per level, coarse to fine: iterative LK. The template patch and its
     spatial-gradient normal matrix G (2x2 per keypoint) come from the
     previous frame and stay fixed; each Newton step resamples the next
     frame at the current guess, forms the image-difference vector b and
     applies the closed-form 2x2 solve. All K keypoints advance together.
-  * sampling: one integer-aligned window per keypoint, gathered once per
-    level through ``kernels/window_gather.py`` (the hand-written kernel for
-    a CUDA image), then bilinear selection-matrix products inside it, two
-    batched ``torch.bmm`` a step in fp32 (the reference asks for bf16x3 on
-    its TPU; the port computes in full fp32, TF32 off).
   * validity: the G min-eigenvalue (Shi-Tomasi), in-bounds, residual bound
     and the anchored forward-backward check.
+
+On the card every level, the backward check and the tests are one launch of
+kernel E (``csrc/lk_flow.cu``, through ``lk_pyramids``): a warp a keypoint,
+its windows in shared memory, the Newton loop next to them. The plain
+version (``lk_pyramids_plain``) gathers one integer-aligned window per
+keypoint and level through ``kernels/window_gather.py`` and samples inside it
+with bilinear selection-matrix products, two batched ``torch.bmm`` a step in
+fp32 (the reference asks for bf16x3 on its TPU; the port computes in full
+fp32, TF32 off). It is what runs on the CPU, and on the card only where a
+caller asks for it (``lk_track(..., plain=True)``, for the card's parity
+checks).
 
 The Newton loop runs a fixed number of iterations (no early exit, no host
 read): ``iters`` at level 0 and for the backward check, ``max(3, iters //
@@ -23,12 +29,20 @@ read): ``iters`` at level 0 and for the backward check, ``max(3, iters //
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
 from ptzjax_torch import _device
+from ptzjax_torch.kernels import _build
 from ptzjax_torch.kernels.window_gather import gather_windows
+
+launches = 0   # kernel E launches since the last reset (plain calls not counted)
+
+MAX_PATCH = 15     # csrc/lk_flow.cu's kMaxPatch: the largest patch the kernel takes
+MAX_LEVELS = 8     # csrc/lk_flow.cu's kMaxLevels
+WARPS_PER_CTA = 4  # keypoints a CTA, a warp each
 
 
 class FlowResult(NamedTuple):
@@ -72,8 +86,9 @@ def _binomial5(a: torch.Tensor) -> torch.Tensor:
 
 
 def build_pyramid(img: torch.Tensor, levels: int) -> list[torch.Tensor]:
-    """Blur-then-2x-subsample pyramid, level 0 = full resolution."""
-    img = img.to(torch.float32)
+    """Blur-then-2x-subsample pyramid, level 0 = full resolution; every
+    level contiguous (kernel E reads them by pointer)."""
+    img = img.to(torch.float32).contiguous()
     pyr = [img]
     for _ in range(1, levels):
         a = _binomial5(pyr[-1])
@@ -224,54 +239,29 @@ def _lk_forward(prev_pyr, next_pyr, xy, patch: int, iters: int):
     return guess, min_eig, resid
 
 
-def lk_track(
-    img_prev,
-    img_next,
-    xy,
-    valid,
-    *,
-    levels: int = 4,
-    patch: int = 13,
-    iters: int = 8,
-    min_eig: float = 1e-3,
-    max_residual: float = 0.5,
-    fb_check: bool = True,
-    fb_tol: float = 1.0,
-    border: float = 2.0,
-    device=None,
+def plan(num: int, levels: int, patch: int, h: int, w: int) -> int:
+    """Kernel E's CTAs for ``num`` keypoints on an (h, w) image; raises for
+    what the kernel does not take: a patch that is even or above
+    ``MAX_PATCH``, levels outside 1..``MAX_LEVELS``, a pyramid whose top
+    level would be empty."""
+    if not 1 <= levels <= MAX_LEVELS:
+        raise ValueError(f"lk_track: the kernel takes 1 to {MAX_LEVELS} levels, got {levels}")
+    if patch % 2 == 0 or not 1 <= patch <= MAX_PATCH:
+        raise ValueError(f"lk_track: the kernel takes an odd patch of 1 to {MAX_PATCH}, got {patch}")
+    if h >> (levels - 1) < 1 or w >> (levels - 1) < 1:
+        raise ValueError(f"lk_track: a {h}x{w} image has no {levels}-level pyramid")
+    return -(-num // WARPS_PER_CTA)
+
+
+def lk_pyramids_plain(
+    prev_pyr, next_pyr, xy, valid, *, patch: int, iters: int, min_eig: float,
+    max_residual: float, fb_check: bool, fb_tol: float, border: float,
 ) -> FlowResult:
-    """Track keypoints from ``img_prev`` to ``img_next``.
-
-    Args:
-      img_prev, img_next: (H, W) float grayscale frames.
-      xy: (K, 2) keypoint positions (x, y) in ``img_prev``.
-      valid: (K,) bool input mask.
-      levels: pyramid levels.
-      patch: LK window side (odd).
-      iters: Newton iterations per level.
-      min_eig: Shi-Tomasi per-pixel min-eigenvalue threshold.
-      max_residual: reject tracks whose mean abs window error exceeds this
-        fraction of the template's own std.
-      fb_check: also run the anchored backward check and reject round trips
-        longer than ``fb_tol`` px.
-      border: reject tracks within this many pixels of the image edge.
-      device: where to run; by default the device of ``img_prev`` if it is
-        a tensor, else the card (raising where there is none).
-
-    Returns:
-      FlowResult with the same capacity K, on that device.
-    """
-    dev = _device.resolve(device, img_prev)
-    img_prev, img_next, xy, valid = (
-        torch.as_tensor(v, device=dev) for v in (img_prev, img_next, xy, valid)
-    )
-    xy = xy.to(torch.float32)
-    prev_pyr = build_pyramid(img_prev, levels)
-    next_pyr = build_pyramid(img_next, levels)
-
+    """``lk_track`` through prebuilt pyramids with plain torch ops (and kernel
+    B's window gathers on the card): kernel E's specification."""
     new_xy, eig, resid = _lk_forward(prev_pyr, next_pyr, xy, patch, iters)
 
-    h, w = img_next.shape
+    h, w = next_pyr[0].shape
     ok = (
         valid
         & (eig > min_eig)
@@ -291,3 +281,112 @@ def lk_track(
 
     new_xy = torch.where(ok[:, None], new_xy, xy)
     return FlowResult(xy=new_xy, tracked=ok, residual=resid)
+
+
+def lk_pyramids(
+    prev_pyr, next_pyr, xy, valid, *, patch: int, iters: int, min_eig: float,
+    max_residual: float, fb_check: bool, fb_tol: float, border: float,
+) -> FlowResult:
+    """``lk_track`` through prebuilt pyramids (lists of (H_l, W_l) fp32
+    levels, the same shapes for both frames): one launch of kernel E for
+    CUDA tensors, the plain version for CPU tensors."""
+    opts = dict(
+        patch=patch, iters=iters, min_eig=min_eig, max_residual=max_residual,
+        fb_check=fb_check, fb_tol=fb_tol, border=border,
+    )
+    dev = xy.device
+    if dev.type == "cpu":
+        return lk_pyramids_plain(prev_pyr, next_pyr, xy, valid, **opts)
+    if dev.type != "cuda":
+        raise ValueError(f"lk_track: unsupported device {dev}")
+    levels = len(prev_pyr)
+    h, w = next_pyr[0].shape
+    ctas = plan(xy.shape[0], levels, patch, h, w)
+    if len(next_pyr) != levels or any(a.shape != b.shape for a, b in zip(prev_pyr, next_pyr)):
+        raise ValueError("lk_track: the two frames' pyramids differ in shape")
+    for img in (*prev_pyr, *next_pyr):
+        if img.device != dev or img.dtype != torch.float32 or not img.is_contiguous():
+            raise ValueError(f"lk_track: pyramid levels must be contiguous float32 on {dev}")
+    xy = xy.to(torch.float32).contiguous()
+    valid = valid.to(device=dev, dtype=torch.bool).contiguous()
+    if xy.shape != (valid.shape[0], 2):
+        raise ValueError(f"lk_track: xy {tuple(xy.shape)} and valid {tuple(valid.shape)}")
+    num = xy.shape[0]
+    out_xy = torch.empty_like(xy)
+    tracked = torch.empty((num,), dtype=torch.bool, device=dev)
+    residual = torch.empty((num,), dtype=torch.float32, device=dev)
+    if ctas == 0:
+        return FlowResult(xy=out_xy, tracked=tracked, residual=residual)
+    ptrs = ctypes.c_void_p * levels
+    dims = ctypes.c_int * levels
+    lib = _build.load()
+    err = lib.ptz_lk_flow(
+        ptrs(*(a.data_ptr() for a in prev_pyr)), ptrs(*(a.data_ptr() for a in next_pyr)),
+        dims(*(a.shape[0] for a in next_pyr)), dims(*(a.shape[1] for a in next_pyr)), levels,
+        xy.data_ptr(), valid.data_ptr(), out_xy.data_ptr(), tracked.data_ptr(), residual.data_ptr(),
+        num, patch, iters, max(3, iters // 2), min_eig, max_residual, border,
+        w - 1 - border, h - 1 - border, fb_tol, int(fb_check), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "lk_track")
+    global launches
+    launches += 1
+    return FlowResult(xy=out_xy, tracked=tracked, residual=residual)
+
+
+def lk_track(
+    img_prev,
+    img_next,
+    xy,
+    valid,
+    *,
+    levels: int = 4,
+    patch: int = 13,
+    iters: int = 8,
+    min_eig: float = 1e-3,
+    max_residual: float = 0.5,
+    fb_check: bool = True,
+    fb_tol: float = 1.0,
+    border: float = 2.0,
+    device=None,
+    plain: bool = False,
+) -> FlowResult:
+    """Track keypoints from ``img_prev`` to ``img_next``.
+
+    Args:
+      img_prev, img_next: (H, W) float grayscale frames.
+      xy: (K, 2) keypoint positions (x, y) in ``img_prev``.
+      valid: (K,) bool input mask.
+      levels: pyramid levels.
+      patch: LK window side (odd).
+      iters: Newton iterations per level.
+      min_eig: Shi-Tomasi per-pixel min-eigenvalue threshold.
+      max_residual: reject tracks whose mean abs window error exceeds this
+        fraction of the template's own std.
+      fb_check: also run the anchored backward check and reject round trips
+        longer than ``fb_tol`` px.
+      border: reject tracks within this many pixels of the image edge.
+      device: where to run; by default the device of ``img_prev`` if it is
+        a tensor, else the card (raising where there is none).
+      plain: on the card, run the plain version instead of kernel E (for
+        the card's parity checks; the main path never asks for it).
+
+    Returns:
+      FlowResult with the same capacity K, on that device.
+    """
+    dev = _device.resolve(device, img_prev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"lk_track: unsupported device {dev}")
+    img_prev, img_next, xy, valid = (
+        torch.as_tensor(v, device=dev) for v in (img_prev, img_next, xy, valid)
+    )
+    xy = xy.to(torch.float32)
+    prev_pyr = build_pyramid(img_prev, levels)
+    next_pyr = build_pyramid(img_next, levels)
+    opts = dict(
+        patch=patch, iters=iters, min_eig=min_eig, max_residual=max_residual,
+        fb_check=fb_check, fb_tol=fb_tol, border=border,
+    )
+    if plain:
+        return lk_pyramids_plain(prev_pyr, next_pyr, xy, valid, **opts)
+    return lk_pyramids(prev_pyr, next_pyr, xy, valid, **opts)

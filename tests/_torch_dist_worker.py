@@ -33,6 +33,27 @@ def _result(out: dict, tag: str, res: ba.BAResult) -> None:
         out[f"{tag}.{field}"] = value.numpy()
 
 
+def _decisions(prob: ba.BAProblem, intr: Intrinsics, cfg: SLAMConfig, mesh, inputs, tag: str) -> np.ndarray:
+    """(S, 3) accept (1) / reject (0) of one ``ba.run_lm`` step from each
+    state of the reference's LM trajectory (cameras, rays, weights, lambda)
+    with each of its three comparator costs, on this process's shard."""
+    trace = {f: inputs[f"trace.{tag}.{f}"] for f in ("cams", "rays", "obs_w", "lam", "comparators")}
+    out = np.zeros(trace["comparators"].shape, np.int32)
+    for k, comparators in enumerate(trace["comparators"]):
+        state = prob._replace(**{f: torch.from_numpy(trace[f][k]) for f in ("cams", "rays", "obs_w")})
+        local = dist.pad_problem_for_mesh(state, mesh.size)
+        if mesh.group is not None:
+            local = dist.shard_problem(local, mesh)
+        for j, cost in enumerate(comparators):
+            lm = ba.LMState(
+                cams=local.cams, rays=local.rays, lam=torch.tensor(trace["lam"][k]),
+                cost=torch.tensor(cost), accepted=torch.zeros((), dtype=torch.int32),
+                iterations=torch.zeros((), dtype=torch.int32),
+            )
+            out[k, j] = int(ba.run_lm(local, intr, cfg, lm, 1, group=mesh.group).accepted)
+    return out
+
+
 def main(rank: int, world: int, root: Path) -> None:
     torch.set_num_threads(1)
     dist.initialize_multihost(
@@ -45,7 +66,10 @@ def main(rank: int, world: int, root: Path) -> None:
     prob, intr = _problem(inputs, "main")
     for iters in (20, 10):
         _result(out, f"main{iters}", dist.run_sharded(prob, intr, SLAMConfig(ba_iters=iters), mesh))
-    _result(out, "robust", dist.run_sharded(prob, intr, SLAMConfig(ba_iters=10, ba_huber_px=2.0), mesh))
+    robust = SLAMConfig(ba_iters=10, ba_huber_px=2.0)
+    _result(out, "robust", dist.run_sharded(prob, intr, robust, mesh))
+    for tag, cfg in (("main20", SLAMConfig(ba_iters=20)), ("robust", robust)):
+        out[f"{tag}.decisions"] = _decisions(prob, intr, cfg, mesh, inputs, tag)
     pad, pad_intr = _problem(inputs, "pad150")
     _result(out, "pad150", dist.run_sharded(pad, pad_intr, SLAMConfig(ba_iters=8), mesh))
     if world == 4:

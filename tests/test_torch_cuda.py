@@ -163,17 +163,101 @@ def _lk_pair(device):
 
 
 def test_lk_track_on_card_matches_cpu(cuda_device):
-    """The card (kernel B, 10 gathers a call at 4 levels with the backward
-    check) against the CPU (plain gather): ``tracked`` equal, ``xy`` within
-    1e-3 px on tracked rows."""
-    before = twg.launches
+    """The card (kernel E, one launch a call at 4 levels with the backward
+    check, no window gather) against the CPU (plain route): ``tracked``
+    equal, ``xy`` within 1e-3 px on tracked rows."""
+    e0, b0 = tflow.launches, twg.launches
     got = tflow.lk_track(*_lk_pair(cuda_device))
-    assert twg.launches == before + 2 * 4 + 2
+    assert tflow.launches == e0 + 1 and twg.launches == b0
     ref = tflow.lk_track(*_lk_pair("cpu"))
     tracked = ref.tracked
     assert int(tracked.sum()) > 100
     assert torch.equal(got.tracked.cpu(), tracked)
     torch.testing.assert_close(got.xy.cpu()[tracked], ref.xy[tracked], rtol=0, atol=1e-3)
+
+
+def _with_edge_rows(xy, valid, w, h):
+    """The table with rows at the four edges and corners, an invalid row and
+    non-finite and far-off positions."""
+    xy, valid = xy.clone(), valid.clone()
+    xy[:9] = torch.tensor(
+        [[0.3, 0.2], [w - 1.4, h - 0.6], [5.0, h - 10.0], [w - 3.0, 4.0], [2.5, h / 2],
+         [np.nan, 40.0], [np.inf, -np.inf], [1e9, -1e9], [w / 2, h / 2]],
+        device=xy.device,
+    )
+    valid[8] = False
+    return xy, valid
+
+
+def _kernel_e_parity(got, ref, xy, valid):
+    """Kernel E against the plain route on the card: ``tracked`` equal, ``xy``
+    within 1e-3 px and the residual within 1e-4 on tracked rows (the plain
+    route's bmm sums in another order), the input position elsewhere."""
+    tracked = ref.tracked
+    assert torch.equal(got.tracked, tracked)
+    assert not bool(tracked[5:9].any()) and not bool((tracked & ~valid).any())
+    torch.testing.assert_close(got.xy[tracked], ref.xy[tracked], rtol=0, atol=1e-3)
+    torch.testing.assert_close(got.residual[tracked], ref.residual[tracked], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got.xy[~tracked], xy[~tracked], rtol=0, atol=0, equal_nan=True)
+
+
+def _small_step_pair(device):
+    """Two 640x360 views of the ``_render`` panorama a step of (0.003,
+    -0.002, 4) apart, ~3 px of motion: within one level's reach."""
+    pano = synth.make_panorama(
+        theta_range=(-0.6, 0.6), phi_range=(-0.35, 0.2), texels_per_rad=2200.0, seed=1
+    )
+    intr = Intrinsics.create(W / 2.0, H / 2.0)
+    cam0 = np.array([0.02, -0.05, 1100.0], np.float32)
+    frames = [synth.render_image(pano, c, intr, W, H) for c in (cam0, cam0 + np.array([0.003, -0.002, 4.0], np.float32))]
+    img0, img1 = (torch.from_numpy(np.asarray(f, np.float32)).to(device) for f in frames)
+    kp = detect_keypoints(img0, 160, threshold=1e-4)
+    return img0, img1, kp.xy, kp.valid
+
+
+@pytest.mark.parametrize("levels", [1, 3, 4])
+def test_lk_kernel_matches_the_plain_route(cuda_device, levels):
+    """Kernel E (one launch, no gather) against ``lk_track(..., plain=True)``
+    on the same card tensors, with and without the backward check, rows at
+    the edges, an invalid row and non-finite rows included."""
+    img0, img1, xy, valid = _small_step_pair(cuda_device)
+    xy, valid = _with_edge_rows(xy, valid, W, H)
+    for fb_check in (True, False):
+        e0, b0 = tflow.launches, twg.launches
+        got = tflow.lk_track(img0, img1, xy, valid, levels=levels, fb_check=fb_check)
+        assert tflow.launches == e0 + 1 and twg.launches == b0
+        ref = tflow.lk_track(img0, img1, xy, valid, levels=levels, fb_check=fb_check, plain=True)
+        assert tflow.launches == e0 + 1
+        _kernel_e_parity(got, ref, xy, valid)
+        assert int(ref.tracked.sum()) > 80
+
+
+def test_lk_kernel_at_the_coarse_level_size(cuda_device):
+    """At 90 x 160 (the coarsest level of a 720p frame), keypoints over the
+    whole image and at its edges: kernel E against the plain route, at one
+    and two levels and with a smaller patch."""
+    img0, img1, _, _ = _lk_pair(cuda_device)
+    small0, small1 = (tflow.build_pyramid(im, 3)[2] for im in (img0, img1))
+    assert small0.shape == (90, 160)
+    rng = np.random.default_rng(3)
+    xy = torch.from_numpy(rng.uniform([0, 0], [159, 89], (96, 2)).astype(np.float32)).to(cuda_device)
+    valid = torch.ones(96, dtype=torch.bool, device=cuda_device)
+    xy, valid = _with_edge_rows(xy, valid, 160, 90)
+    for kw in (dict(levels=1), dict(levels=2), dict(levels=2, patch=9, iters=5)):
+        got = tflow.lk_track(small0, small1, xy, valid, **kw)
+        ref = tflow.lk_track(small0, small1, xy, valid, plain=True, **kw)
+        _kernel_e_parity(got, ref, xy, valid)
+
+
+def test_lk_kernel_refuses_what_it_does_not_take(cuda_device):
+    """A patch above MAX_PATCH or even, or too many levels, raise on the card
+    before any launch; nothing falls back to the plain route."""
+    img0, img1, xy, valid = _lk_pair(cuda_device)
+    e0, b0 = tflow.launches, twg.launches
+    for kw in (dict(patch=tflow.MAX_PATCH + 2), dict(patch=12), dict(levels=tflow.MAX_LEVELS + 1)):
+        with pytest.raises(ValueError, match="lk_track"):
+            tflow.lk_track(img0, img1, xy, valid, **kw)
+    assert tflow.launches == e0 and twg.launches == b0
 
 
 def _klt_run(dev, imgs, cams, intr):
@@ -185,19 +269,20 @@ def _klt_run(dev, imgs, cams, intr):
     frames = torch.from_numpy(imgs).to(dev)
     xy0, d0, v0 = extract_features(frames[0], slam.cfg)
     state = slam.init(xy0, d0, v0, cams[0])
-    before = twg.launches
+    b0, e0 = twg.launches, tflow.launches
     state, infos, xy, valid = slam.run_segment_pixels_klt(state, frames[1:], frames[0], xy0, v0)
-    return slam, state, infos, twg.launches - before
+    return slam, state, infos, (twg.launches - b0, tflow.launches - e0)
 
 
 def test_klt_slice_on_card_matches_cpu(cuda_device):
-    """KLT mode on the card (kernels A-D) and on the CPU: the same flags,
-    poses within 5e-4 rad and 2 px, and 11 window gathers a frame."""
+    """KLT mode on the card (kernels A-E) and on the CPU: the same flags,
+    poses within 5e-4 rad and 2 px, and a frame's launches: one of kernel E
+    (the flow) and one window gather (the descriptors)."""
     imgs, cams, intr = _render(30)
     imgs = imgs[:14]
     _, _, i_cpu, _ = _klt_run("cpu", imgs, cams, intr)
-    _, _, i_gpu, gathers = _klt_run(cuda_device, imgs, cams, intr)
-    assert gathers == 11 * (len(imgs) - 1)
+    _, _, i_gpu, (gathers, flows) = _klt_run(cuda_device, imgs, cams, intr)
+    assert gathers == flows == len(imgs) - 1
     for name in ("lost", "event", "keyframe"):
         np.testing.assert_array_equal(getattr(i_gpu, name).cpu().numpy(), getattr(i_cpu, name).numpy())
     assert int(i_gpu.keyframe.sum()) >= 2 and not bool(i_gpu.lost.any())

@@ -181,3 +181,108 @@ def test_numpy_inputs_run_on_the_card_by_default(monkeypatch):
     ref = tflow.lk_track(t(img0), t(img1), t(xy), t(valid))
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+# --- kernel E's route (csrc/lk_flow.cu): what the CPU can check -------------
+
+
+def test_cpu_tensors_launch_no_lk_kernel():
+    """On the CPU ``lk_track`` takes the plain route: no launch of kernel E
+    (nor of B) is counted, and the wrapper on prebuilt pyramids is the plain
+    version bit for bit."""
+    img0, img1, *_ = _render_pair()
+    xy, valid = _keypoints(img0, 32)
+    e0, b0 = tflow.launches, twg.launches
+    got = tflow.lk_track(t(img0), t(img1), t(xy), t(valid))
+    assert tflow.launches == e0 and twg.launches == b0
+    pyr0, pyr1 = tflow.build_pyramid(t(img0), 4), tflow.build_pyramid(t(img1), 4)
+    opts = dict(patch=13, iters=8, min_eig=1e-3, max_residual=0.5, fb_check=True, fb_tol=1.0, border=2.0)
+    wrapped = tflow.lk_pyramids(pyr0, pyr1, t(xy), t(valid), **opts)
+    plain = tflow.lk_pyramids_plain(pyr0, pyr1, t(xy), t(valid), **opts)
+    assert tflow.launches == e0
+    for a, b, c in zip(got, wrapped, plain):
+        assert torch.equal(a, b) and torch.equal(b, c)
+
+
+def test_a_device_that_is_neither_cpu_nor_cuda_raises():
+    img0, img1, *_ = _render_pair()
+    xy, valid = _keypoints(img0, 8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tflow.lk_track(img0, img1, xy, valid, device="meta")
+    meta = [torch.empty((90, 160), device="meta")]
+    with pytest.raises(ValueError, match="unsupported device"):
+        tflow.lk_pyramids(
+            meta, meta, torch.empty((8, 2), device="meta"), torch.empty(8, dtype=torch.bool, device="meta"),
+            patch=13, iters=8, min_eig=1e-3, max_residual=0.5, fb_check=True, fb_tol=1.0, border=2.0,
+        )
+
+
+@pytest.mark.parametrize(
+    "levels, patch, h, w",
+    [(4, 17, 720, 1280), (4, 12, 720, 1280), (4, 0, 720, 1280), (0, 13, 720, 1280), (9, 13, 720, 1280), (4, 13, 4, 1280)],
+)
+def test_plan_refuses_what_the_kernel_does_not_take(levels, patch, h, w):
+    """A patch above MAX_PATCH or even, levels outside 1..MAX_LEVELS or a
+    pyramid with an empty top level raise before any launch (the card's
+    route calls ``plan`` first; nothing falls back to the plain route)."""
+    before = tflow.launches
+    with pytest.raises(ValueError, match="lk_track"):
+        tflow.plan(512, levels, patch, h, w)
+    assert tflow.launches == before
+
+
+def test_plan_gives_a_warp_a_keypoint():
+    assert tflow.plan(512, 4, 13, 720, 1280) == 512 // tflow.WARPS_PER_CTA == 128
+    assert tflow.plan(513, 4, 13, 720, 1280) == 129
+    assert tflow.plan(0, 1, tflow.MAX_PATCH, 1, 1) == 0
+    assert tflow.plan(160, tflow.MAX_LEVELS, 1, 720, 1280) == 40
+
+
+def _tap_sample(windows: torch.Tensor, corner: torch.Tensor, patch: int) -> torch.Tensor:
+    """Kernel E's sample (csrc/lk_flow.cu:window_sample) in torch: at patch
+    sample (p, q), the 4 taps around t = clamp(corner + (q, p), 0, W - 1)
+    with weights clamp(1 - |t - j|, 0, 1), along y first and then x."""
+    k, win, _ = windows.shape
+    p = torch.arange(patch, dtype=torch.float32)
+    ty = (corner[:, 1:2] + p).clamp(0.0, win - 1.0)                 # (K, P)
+    tx = (corner[:, 0:1] + p).clamp(0.0, win - 1.0)
+    i0, j0 = ty.long().clamp(max=win - 2), tx.long().clamp(max=win - 2)
+
+    def weight(tt, j):
+        return (1.0 - (tt - j.to(torch.float32)).abs()).clamp(0.0, 1.0)
+
+    wy0, wy1, wx0, wx1 = weight(ty, i0), weight(ty, i0 + 1), weight(tx, j0), weight(tx, j0 + 1)
+    kk = torch.arange(k)[:, None, None]
+
+    def tap(di, dj):
+        return windows[kk, (i0 + di)[:, :, None], (j0 + dj)[:, None, :]]
+
+    a0 = wy0[:, :, None] * tap(0, 0) + wy1[:, :, None] * tap(1, 0)    # along y, column j0
+    a1 = wy0[:, :, None] * tap(0, 1) + wy1[:, :, None] * tap(1, 1)    # column j0 + 1
+    return wx0[:, None, :] * a0 + wx1[:, None, :] * a1
+
+
+def test_tap_sample_equals_the_selection_matrix_product():
+    """The plain version's sample, ``sy @ window @ sx^T`` with bilinear
+    selection matrices, is the 4-tap bilinear sample that kernel E computes,
+    also where t is clamped (t < 0, t = W - 1, t > W - 1). Tolerance: each
+    of the two passes sums the same two nonzero products, rounded in
+    another order (the product has zeros and may contract to an FMA), so
+    they differ by at most 2 ulp of the window's largest value a pass:
+    4 * 2**-23 for values in [0, 1)."""
+    patch, win = 13, 13 + 2 * tflow._DISP + 1
+    rng = np.random.default_rng(5)
+    windows = t(rng.uniform(0.0, 1.0, (64, win, win)).astype(np.float32))
+    corner = rng.uniform(-3.0, win - patch + 3.0, (64, 2)).astype(np.float32)
+    corner[:6] = [
+        [-1.5, -0.25],                                   # t < 0 for the first rows and columns
+        [win - patch, win - patch],                      # the last sample at t = W - 1 exactly
+        [win - patch + 2.5, win - patch + 0.75],         # t > W - 1
+        [0.0, 0.0], [-20.0, 40.0], [3.5, 4.0],           # integral corners, far off both sides
+    ]
+    corner_t = t(corner)
+    sy = tflow._sel_weights(corner_t[:, 1], patch, win)
+    sx = tflow._sel_weights(corner_t[:, 0], patch, win)
+    want = torch.bmm(torch.bmm(sy, windows), sx.transpose(1, 2))
+    got = _tap_sample(windows, corner_t, patch)
+    torch.testing.assert_close(got, want, rtol=0, atol=4 * 2.0**-23)
