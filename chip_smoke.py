@@ -7,7 +7,9 @@ Run from the root of a checkout, on a machine with one CUDA card:
 (``python3 chip_smoke.py --detect-stage`` prints only phases 1-2 and the
 detection-stage line of 3a, through the public ``detect_keypoints``, so a
 copy of this script placed at the root of an earlier checkout measures that
-checkout's detection stage.)
+checkout's detection stage; ``--frame-walls`` likewise prints only the wall
+medians of 4d's tracked frames in re-detect and in KLT mode, through the
+public entry points.)
 
 Phases, each of which raises (non-zero exit) on failure:
 
@@ -19,9 +21,9 @@ Phases, each of which raises (non-zero exit) on failure:
    720p frame with no mask and with a mask of three boxes, bitwise (sup and
    floor everywhere, off at the survivors), then the whole
    ``detect_keypoints`` call: device time and kernels per call; (b) the
-   window gather, 512 windows at win 46 and 18 (descriptors) and at the LK
-   shapes that its plain route still gathers: sides 16 and 24 at 720p and
-   side 24 at the 90 x 160 level;
+   window gather, which only the plain routes still launch: 512 windows at
+   win 46 and 18 (``describe_keypoints``) and at the LK shapes: sides 16
+   and 24 at 720p and side 24 at the 90 x 160 level;
    (c) the matcher at 512 x 256
    gated at 60 px (tracking), 512 x 512 mutual and ungated (the homography
    baseline, frame to frame), 512 x
@@ -40,7 +42,15 @@ Phases, each of which raises (non-zero exit) on failure:
    against the CPU (``tracked`` equal, ``xy`` within 1e-3 px on tracked
    rows); E alone on the call's pyramids beside the plain route (event and
    device time, bound, share); the whole call's device time, kernels a
-   call and event time;
+   call and event time; (f) the descriptor stage: ``describe_keypoints`` on
+   frame 1 of the sequence at 512 detected keypoints (the last 4 rows made
+   invalid, one of them NaN) through kernel F (one launch and no window
+   gather a call) against the plain route on the card (B's windows and
+   torch), at 4b's frame-1 scale, 1/2.5, 1.0, 1.37, 2.5 and None: within
+   1e-5 a component, zeros on the invalid rows, three calls bitwise equal;
+   F's event and device time, bound and share beside the plain route's for
+   both routes; the whole call's device time, kernels a call and event
+   time through F and through the plain route;
 4. the slice: ``bench.py``'s 720p sequence, continued from 120 to 192
    frames (one full period of its pan sweep) so that the product defaults'
    keyframe policy inserts keyframes (at 120 frames it inserts none),
@@ -49,7 +59,7 @@ Phases, each of which raises (non-zero exit) on failure:
    same code run on the CPU (``device="cpu"``, plain versions), in
    re-detect and in KLT mode. (b) The
    whole sequence: the kernel launch counters must equal the counts the call sites give (detection and
-   windows once per frame, the matcher once per tracked frame and per
+   the descriptors once per frame, no window gather, the matcher once per tracked frame and per
    keyframe insert, the Cholesky once per tracked frame), no frame may be
    lost, the pan error against ground truth must stay under 3e-3 rad and
    windowed BA must have run. (c) The same sequence with frames 140-146
@@ -65,8 +75,9 @@ Phases, each of which raises (non-zero exit) on failure:
    pass, under the profiler). (e) The whole sequence in KLT mode (``init``
    + ``run_segment_pixels_klt`` seeded with frame 0's features): no lost
    frame, pan MAE < 3e-3 rad, windowed BA ran, the counters equal to the
-   call sites' counts (kernel E once a KLT frame, the window gather once at
-   ``init`` and once a frame for the descriptors), ``eval.evaluate_run``'s
+   call sites' counts (kernel E once a KLT frame, kernel F once at ``init``
+   and once a frame for the descriptors, no window gather),
+   ``eval.evaluate_run``'s
    report. (f) ``PTZSlam.bundle_adjust``
    on 4b's final state, plain and robust (cost after <= cost before,
    finite), and ``ba.run`` / ``ba.run_robust`` on the BA bench problem (32
@@ -92,15 +103,15 @@ Phases, each of which raises (non-zero exit) on failure:
    subprocess with no ``--device``: it runs on ``cuda`` and exits 0. (e)
    ``--tracker homography --synthetic-images`` at 720p, 96 frames, bench.py's
    trajectory flags: no frame rejected, pan MAE over the first 20 frames <
-   5e-3 rad (tests/test_baselines.py's bar), launches A 96, B 96 (the staged
-   features), C 95 (one match a tracked frame), D 0; the first 8 frames on
+   5e-3 rad (tests/test_baselines.py's bar), launches A 96, F 96 (the staged
+   features), C 95 (one match a tracked frame), B, D and E 0; the first 8 frames on
    the card against the same CLI with ``--device cpu``; then
    ``track_homography_ekf`` over frames 1-40 of 4b's sequence: wall, device
    time and kernels a frame. (f) ``--offline`` on
    5a's sequence (720p, 192 frames: at 96 the keyframe policy inserts none,
    and BA would refine rays against the one frozen bootstrap camera): no
-   lost frame, pan MAE < 3e-3 rad, the BA cost not raised, launches A and B
-   192 (the sharded frontend) and C and D the call sites' counts for its
+   lost frame, pan MAE < 3e-3 rad, the BA cost not raised, launches A and F
+   192 (the sharded frontend), B 0 and C and D the call sites' counts for its
    records. (g) ``dist.run_sharded`` in a one-rank
    NCCL process group on the card (TCP rendezvous on localhost): through
    the one-device mesh and through a mesh that holds the group (so the
@@ -109,8 +120,9 @@ Phases, each of which raises (non-zero exit) on failure:
 
 The line before the last is one JSON object with the kernels' numbers
 (``launches`` from run 4b, and for kernel E, which only KLT mode runs, from
-4e; ``launches_by_path`` from 4b, both 4c runs, 4e and the runs of 5a-5c and
-5e-5g); the last line is ``{"ok": true, "device": {...}}``.
+4e; kernel B, on no main path since kernels E and F took its call sites,
+reads 0; ``launches_by_path`` from 4b, both 4c runs, 4e and the runs of
+5a-5c and 5e-5g); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -360,10 +372,10 @@ def kernel_phase(img: torch.Tensor, card: str) -> list[dict]:
         )
     print(detect_stage_line(img, card))
 
-    # B: 512 windows at win 46 (descriptors, per frame) and 18 (bootstrap),
-    # and at the LK shapes (KLT mode): the template windows (side 16) and
-    # the search windows (side 24) at level 0, the search windows at the
-    # 90 x 160 level; bitwise
+    # B, which the plain routes still launch: 512 windows at win 46 and 18
+    # (descriptors, with and without a scale), and at the LK shapes: the
+    # template windows (side 16) and the search windows (side 24) at level
+    # 0, the search windows at the 90 x 160 level; bitwise
     rng = np.random.default_rng(0)
     starts = {}
     for win in (SCALED_WIN, PATCH + 2):
@@ -413,6 +425,7 @@ def kernel_phase(img: torch.Tensor, card: str) -> list[dict]:
             "name": "gather_windows", "route": "cuda",
             "source": "ptzjax_torch/csrc/gather_windows.cu",
             "replaces": "ptzjax/kernels/window_pallas.py:67",
+            "note": "on no main path: kernels E and F took its call sites; the plain routes still gather through it",
             **gather[f"win={SCALED_WIN}"],
             "max_abs_err": max(v["max_abs_err"] for v in gather.values()),
             "ms_by_shape": gather,
@@ -599,6 +612,178 @@ def lk_stage(dev, card) -> dict:
     }
 
 
+def sync_sites(fn) -> list[str]:
+    """The lines of ``ptzjax_torch`` at which ``fn()`` made the host wait for
+    the card (sync debug mode "warn"), the innermost frame of the package
+    for each wait."""
+    import traceback
+    import warnings
+
+    sites: list[str] = []
+
+    def hook(message, *_args, **_kw):
+        if "called a synchronizing" in str(message):   # not the prototype notice
+            ours = [f for f in traceback.extract_stack() if f"{os.sep}ptzjax_torch{os.sep}" in f.filename]
+            sites.append(f"{os.path.relpath(ours[-1].filename)}:{ours[-1].lineno}" if ours else "outside the package")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sites
+
+
+def describe_work(img: torch.Tensor, xy: torch.Tensor, valid: torch.Tensor, scale) -> tuple[int, int]:
+    """(bytes, fp32 operations) that kernel F needs for these inputs, counted
+    from the samples the descriptor depends on. The gradients read every
+    aligned sample of the 18 x 18 grid but its 4 corners; with a scale, a
+    sample reads the blended window at the resample's nonzero taps (at this
+    run's clamped scale: at unit spacing one blended sample each); a
+    blended sample reads its 2 x 2 window pixels. Bytes: those pixels of
+    the valid rows, each image pixel once, the spatial table (16 KB) and
+    the scale, 9 B of position and flag read and 512 B of descriptor
+    written a keypoint. Operations, a valid keypoint: 11 a needed blended
+    sample; with a scale, 3 a tap pair of the separable resample (18 a
+    needed blended row, then the 18 x 18 grid); 16 a patch pixel for its
+    gradient, magnitude, orientation and bins; the histogram's nonzero
+    terms (each pixel's nonzero spatial weights x its 2 orientation bins),
+    3 each, and 4 a pixel for its orientation weights; 10 a bin for the
+    normalization. F itself loads and blends whole windows and its bin loop
+    runs over the exact zeros; this count leaves both out."""
+    from ptzjax_torch.kernels import descriptor as kd
+
+    side, pix = kd.PATCH + 2, kd.PATCH * kd.PATCH
+    grid = torch.ones(side, side)
+    grid[0, 0] = grid[0, -1] = grid[-1, 0] = grid[-1, -1] = 0.0
+    if scale is None:
+        win, blended, resample = side, grid > 0, 0
+    else:
+        win = kd.SCALED_WIN
+        s = torch.as_tensor(scale, dtype=torch.float32).cpu().clamp(1.0 / kd.MAX_SCALE, kd.MAX_SCALE)
+        taps = (kd._resample_matrix(s, side, win) != 0).to(torch.float32)     # (18, 46)
+        blended = taps.T @ grid @ taps > 0
+        resample = (int(blended.any(1).sum()) * side + side * side) * 3
+    raw = torch.zeros(win + 1, win + 1, dtype=torch.bool)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            raw[dy : dy + win, dx : dx + win] |= blended
+    h, w = img.shape
+    rows, cols = kd._window_pixels(h, w, xy[valid], win)
+    pixels = (rows[:, :, None] * w + cols[:, None, :])[:, raw.to(rows.device)]
+    covered = torch.unique(pixels.reshape(-1)).numel()
+    num, n_valid = xy.shape[0], int(valid.sum())
+    spatial = kd._spatial_weights(img.device)
+    nbytes = 4 * covered + spatial.numel() * 4 + (0 if scale is None else 4) + num * (9 + 4 * kd.DESC_DIM)
+    terms = int((spatial != 0).sum()) * 2
+    per_kp = 11 * int(blended.sum()) + resample + 16 * pix + 3 * terms + 4 * pix + 10 * kd.DESC_DIM
+    return nbytes, n_valid * per_kp
+
+
+def describe_stage(imgs: torch.Tensor, cams, intr, card: str) -> dict:
+    """3f: ``describe_keypoints`` on frame 1 of the sequence at its 512
+    detected keypoints, the last 4 rows made invalid (one of them NaN),
+    through kernel F (one launch and no window gather a call) against the
+    plain route on the card (B's windows and torch), at 4b's frame-1 scale
+    (the bootstrap's live focal over f_ref, as the loop forms it), both
+    clamp ends, 1.0, 1.37 and None: within 1e-5 a component, zeros on the
+    invalid rows, three calls bitwise equal. Then F alone beside the plain
+    route (event and device time, bound, share) for both routes, and the
+    whole call's device time, kernels a call and event time through F and
+    through the plain route. Returns F's numbers (the scaled route at 4b's
+    frame-1 scale)."""
+    from ptzjax_torch import slam as slam_mod
+    from ptzjax_torch.config import SLAMConfig
+    from ptzjax_torch.frontend import _desc_scale, extract_features
+    from ptzjax_torch.kernels import descriptor as kd
+    from ptzjax_torch.kernels import window_gather as wg
+    from ptzjax_torch.kernels.detect import detect_keypoints
+
+    dev = imgs.device
+    slam = slam_mod.PTZSlam(SLAMConfig(), intr, device=dev)
+    state = slam.init(*extract_features(imgs[0], slam.cfg), cams[0])
+    s_4b = _desc_scale(slam.cfg, slam_mod._safe_focal(state, slam.cfg))
+    img = imgs[1]
+    kp = detect_keypoints(img, slam.cfg.max_keypoints, threshold=slam.cfg.detector_threshold)
+    xy, valid = kp.xy.clone(), kp.valid.clone()
+    valid[-4:] = False
+    xy[-1] = float("nan")
+    check(int(valid.sum()) == xy.shape[0] - 4, f"3f: {int(kp.valid.sum())} of 512 keypoints detected")
+    scales = {
+        "4b frame 1": s_4b, "1/2.5": torch.tensor(0.4, device=dev), "1.0": torch.tensor(1.0, device=dev),
+        "1.37": torch.tensor(1.37, device=dev), "2.5": torch.tensor(2.5, device=dev), "None": None,
+    }
+    errs = {}
+    for name, s in scales.items():
+        f0, b0 = kd.launches, wg.launches
+        got = kd.describe_keypoints(img, xy, valid, scale=s)
+        launched = (kd.launches - f0, wg.launches - b0)
+        ref = kd.describe_keypoints(img, xy, valid, scale=s, plain=True)
+        again = [kd.describe_keypoints(img, xy, valid, scale=s) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(launched == (1, 0), f"3f scale {name}: {launched[0]} launches of F and {launched[1]} of B a call, 1 and 0 expected")
+        check(tuple(got.shape) == (512, kd.DESC_DIM) and bool(torch.isfinite(got).all()), f"3f scale {name}: shape or non-finite")
+        err = float((got - ref).abs().max())
+        check(err <= 1e-5, f"3f scale {name}: F differs from the plain route by {err} (tolerance 1e-5)")
+        check(not bool(got[~valid].any()), f"3f scale {name}: an invalid row is not zero")
+        check(all(torch.equal(a, got) for a in again), f"3f scale {name}: repeated calls differ")
+        errs[name] = err
+    print(
+        "describe_keypoints 512 kp (4 invalid) on frame 1, 720x1280, kernel F against the plain route on the card, "
+        "max_abs_err by scale (tolerance 1e-5): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (4b frame-1 scale {float(s_4b)}); invalid rows zero; three calls bitwise equal; 1 launch of F and "
+        f"0 of B a call [{card}]"
+    )
+    # no host read of the scale: a call waits for nothing; a tracked frame
+    # (re-detect and KLT) waits only at the loop's designed reads
+    waits = sync_sites(lambda: kd.describe_keypoints(img, xy, valid, scale=s_4b))
+    check(not waits, f"3f: describe_keypoints waited for the card at {waits}")
+    feats = extract_features(imgs[0], slam.cfg)
+    frame_waits = {
+        "re-detect": sync_sites(lambda: slam.run_segment_pixels(state, imgs[1:2])),
+        "KLT": sync_sites(lambda: slam.run_segment_pixels_klt(state, imgs[1:2], imgs[0], feats[0], feats[2])),
+    }
+    for mode, w in frame_waits.items():
+        check(not any("descriptor.py" in x or "frontend.py" in x for x in w), f"3f: a {mode} frame waited in the frontend at {w}")
+    print(
+        "sync debug mode: describe_keypoints waits for the card 0 times a call; frame 1 waits at "
+        + "; ".join(f"{mode}: {sorted(set(w))} ({len(w)} waits)" for mode, w in frame_waits.items())
+    )
+    by_route, stage = {}, {}
+    for route, s in (("scaled, 4b frame 1", s_4b), ("unscaled", None)):
+        nbytes, ops = describe_work(img.cpu(), xy.cpu(), valid.cpu(), s)   # counted on the host
+        t = timings(
+            lambda: kd.describe_kernel(img, xy, valid, s),
+            lambda: kd.describe_keypoints_plain(img, xy, valid, s),
+            nbytes, ops, plain_batch=20,
+        )
+        t["max_abs_err"] = max(errs.values())
+        by_route[route] = t
+        print(f"kernel F (describe_kernel) 512 kp, {route}, {nbytes} B, {ops} flop: {describe(t)} [{card}]")
+        for path, plain in (("F", False), ("plain route", True)):
+            def call():
+                return kd.describe_keypoints(img, xy, valid, scale=s, plain=plain)
+
+            dev_ms, names = device_time(call, batch=20)
+            stage[(route, path)] = (dev_ms, sum(names.values()) / 20, time_ms(call, reps=3, batch=20))
+    for (route, path), (dev_ms, per_call, ev) in stage.items():
+        print(
+            f"describe_keypoints stage 512 kp 720x1280, {route}, through {path}: {dev_ms:.4f} ms device, "
+            f"{per_call:g} kernels a call, {ev:.4f} ms event [{card}]"
+        )
+    return {
+        "name": "describe_keypoints", "route": "cuda", "source": "ptzjax_torch/csrc/describe.cu",
+        "replaces": "ptzjax/kernels/window_pallas.py:67", **by_route["scaled, 4b frame 1"],
+        "ms_by_shape": by_route,
+    }
+
+
 def _unit(x: np.ndarray) -> np.ndarray:
     return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
 
@@ -757,8 +942,8 @@ def cholesky_phase(dev, card: str) -> dict:
     }
 
 
-KERNEL_MODULES = ("harris_nms", "window_gather", "match", "cholesky", "flow")
-COUNTER_NAMES = ("harris_nms", "gather_windows", "match_scores", "cholesky", "lk_track")
+KERNEL_MODULES = ("harris_nms", "window_gather", "match", "cholesky", "flow", "descriptor")
+COUNTER_NAMES = ("harris_nms", "gather_windows", "match_scores", "cholesky", "lk_track", "describe_keypoints")
 
 
 def reset_counts() -> None:
@@ -776,8 +961,8 @@ def read_counts() -> dict:
 
 def expected_counts(infos, klt: bool = False) -> dict:
     """What the call sites launch in ``run_slice`` (or, with ``klt``, in
-    ``run_klt``): detection and the window gather (the descriptors) on
-    every frame (``init``'s included); in KLT mode kernel E once on every
+    ``run_klt``): detection and kernel F (the descriptors) on every frame
+    (``init``'s included), the window gather never; in KLT mode kernel E once on every
     later frame; the matcher on every tracked frame, every keyframe insert
     (the bootstrap's included) and every relocalization frame; the Cholesky
     on every tracked frame."""
@@ -795,9 +980,9 @@ def _expected(event: np.ndarray, keyframe: np.ndarray, klt: bool) -> dict:
     inserts = int(keyframe.sum())
     frames = len(event) + 1
     return {
-        "harris_nms": frames, "gather_windows": frames,
+        "harris_nms": frames, "gather_windows": 0,
         "match_scores": tracked + inserts + 1 + relocs, "cholesky": tracked,
-        "lk_track": frames - 1 if klt else 0,
+        "lk_track": frames - 1 if klt else 0, "describe_keypoints": frames,
     }
 
 
@@ -911,6 +1096,37 @@ def frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
             )
 
 
+def frame_walls(imgs: torch.Tensor, cams, intr, card: str) -> str:
+    """The wall medians of 4d's tracked frames 40-79 (map mode, no keyframe
+    insert) in re-detect and in KLT mode, the two modes in turns, one frame
+    a call with a sync after each. Uses only the public entry points, so the
+    same code times an earlier checkout (``--frame-walls``)."""
+    from ptzjax_torch.config import SLAMConfig
+    from ptzjax_torch.frontend import extract_features
+    from ptzjax_torch.slam import PTZSlam
+
+    frames = range(40, 80)
+    slam = PTZSlam(SLAMConfig(), intr)
+    xy0, desc0, valid0 = extract_features(imgs[0], slam.cfg)
+    state = slam.init(xy0, desc0, valid0, cams[0])
+    redetect, _ = slam.run_segment_pixels(state, imgs[1:frames.start])
+    klt, _, xy, valid = slam.run_segment_pixels_klt(state, imgs[1:frames.start], imgs[0], xy0, valid0)
+    walls: dict = {"re-detect": [], "KLT": []}
+    for f in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        redetect, _ = slam.run_segment_pixels(redetect, imgs[f:f + 1])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        klt, _, xy, valid = slam.run_segment_pixels_klt(klt, imgs[f:f + 1], imgs[f - 1], xy, valid)
+        torch.cuda.synchronize()
+        walls["re-detect"].append((t1 - t0) * 1e3)
+        walls["KLT"].append((time.perf_counter() - t1) * 1e3)
+    return f"frame walls, tracked frames {frames.start}-{frames.stop - 1}: " + ", ".join(
+        f"{mode} median {np.median(w):.3f} ms" for mode, w in walls.items()
+    ) + f" [{card}]"
+
+
 def klt_phase(imgs: torch.Tensor, cams, intr, card: str):
     """4e: the whole sequence in KLT mode, counted; returns the launch
     counts."""
@@ -927,7 +1143,7 @@ def klt_phase(imgs: torch.Tensor, cams, intr, card: str):
     want = expected_counts(infos, klt=True)
     print(f"launches over the {frames}-frame KLT path: {counts}")
     check(counts == want, f"KLT: launches {counts}, call sites give {want}")
-    check(all(v > 0 for v in counts.values()), f"KLT: a kernel never launched: {counts}")
+    check(all(v > 0 for k, v in counts.items() if k != "gather_windows"), f"KLT: a kernel never launched: {counts}")
     pose = infos.pose.cpu().numpy()
     lost = infos.lost.cpu().numpy()
     check(pose.shape == (frames - 1, 3) and np.isfinite(pose).all(), "KLT: poses not finite / wrong shape")
@@ -974,7 +1190,7 @@ def klt_frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> dict:
         return float(np.median(walls)) * 1e3, prof, read_counts()
 
     wall, _, counts = run(False)
-    want = dict.fromkeys(COUNTER_NAMES, len(frames))
+    want = {**dict.fromkeys(COUNTER_NAMES, len(frames)), "gather_windows": 0}
     print(f"4d KLT tracked frames {frames.start}-{frames.stop - 1}: launches {counts}")
     check(counts == want, f"4d KLT: launches {counts}, call sites give {want}")
     kernels = repeat_until_same(lambda: device_kernels(run(True)[1]), lambda k: (len(k),))
@@ -1331,7 +1547,7 @@ def homography_phase(tmp: str, card: str) -> dict:
     err = np.abs(pose - traj["gt"])
     mae20 = float(err[:20, 0].mean())
     inliers = np.array([r["num_matches"] for r in recs])
-    want = {"harris_nms": 96, "gather_windows": 96, "match_scores": 95, "cholesky": 0, "lk_track": 0}
+    want = {"harris_nms": 96, "gather_windows": 0, "match_scores": 95, "cholesky": 0, "lk_track": 0, "describe_keypoints": 96}
     print(
         f"5e homography: 96 frames 720p: rejected {summary['frames_lost']}, pan MAE first 20 frames {mae20} rad, "
         f"all frames {float(err[:, 0].mean())} rad; inliers a frame mean {float(inliers.mean()):.1f}, min "
@@ -1370,7 +1586,7 @@ def offline_phase(tmp: str, card: str, frames: int = 192) -> dict:
     recs, s = res.records, res.summary
     traj = np.load(os.path.join(tmp, "offline", "trajectory.npz"))
     mae = float(np.abs(traj["pose"][:, 0] - traj["gt"][:, 0]).mean())
-    want = {**expected_from_records(recs), "harris_nms": frames, "gather_windows": frames}
+    want = {**expected_from_records(recs), "harris_nms": frames, "describe_keypoints": frames}
     print(
         f"5f offline: {frames} frames 720p, mesh of {s['mesh_devices']}: lost {s['frames_lost']}, keyframes "
         f"{s['keyframes']}, pan MAE {mae} rad; BA cost {s['ba_cost_before']:.3f} -> {s['ba_cost_after']:.3f} px^2; "
@@ -1477,6 +1693,10 @@ def main() -> int:
         imgs_np, _, _ = render(1, 1280, 720)
         print(detect_stage_line(torch.from_numpy(imgs_np[0]).to(dev), card))
         return 0
+    if "--frame-walls" in sys.argv[1:]:
+        imgs_np, cams, intr = render(80, 1280, 720)
+        print(frame_walls(torch.from_numpy(imgs_np).to(dev), cams, intr, card))
+        return 0
 
     # 3. kernels vs plain at main-path shapes
     w, h, frames = 1280, 720, 192
@@ -1487,6 +1707,8 @@ def main() -> int:
     kernels.append(cholesky_phase(dev, card))
     # 3e. the LK stage (kernel E)
     kernels.append(lk_stage(dev, card))
+    # 3f. the descriptor stage (kernel F)
+    kernels.append(describe_stage(imgs, cams, intr, card))
 
     # 4a. the first frames through the same code on the CPU (plain
     # versions) and on the card, in re-detect and in KLT mode: the
@@ -1516,8 +1738,8 @@ def main() -> int:
     want = expected_counts(infos)
     print(f"launches over the {frames}-frame main path: {launches}")
     check(launches == want, f"launches {launches}, call sites give {want}")
-    # kernel E runs in KLT mode only (4e)
-    check(all(v > 0 for k, v in launches.items() if k != "lk_track"), f"a kernel never launched: {launches}")
+    # kernel E runs in KLT mode only (4e); B on no main path
+    check(all(v > 0 for k, v in launches.items() if k not in ("lk_track", "gather_windows")), f"a kernel never launched: {launches}")
 
     pose = infos.pose.cpu().numpy()
     lost = infos.lost.cpu().numpy()

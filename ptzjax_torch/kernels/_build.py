@@ -22,7 +22,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("harris_nms.cu", "gather_windows.cu", "match.cu", "cholesky.cu", "lk_flow.cu")
+SOURCES = ("harris_nms.cu", "gather_windows.cu", "match.cu", "cholesky.cu", "lk_flow.cu", "describe.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ptzjax_torch"
 # -fmad=false: no multiply-add contraction, so the detection kernel and the
 # matcher's gate round once per operation like the plain torch versions (see
@@ -109,6 +109,8 @@ def load() -> ctypes.CDLL:
         vpp, cip = ctypes.POINTER(vp), ctypes.POINTER(ci)
         lib.ptz_lk_flow.argtypes = [vpp, vpp, cip, cip, ci] + [vp] * 5 + [ci] * 4 + [cf] * 6 + [ci, ci, vp]
         lib.ptz_lk_flow.restype = ci
+        lib.ptz_describe.argtypes = [vp, ci, ci] + [vp] * 5 + [ci, ci, vp]
+        lib.ptz_describe.restype = ci
         lib.ptz_smem_optin.argtypes = [ci]
         lib.ptz_smem_optin.restype = ci
         lib.ptz_error_string.argtypes = [ci]

@@ -155,6 +155,109 @@ def test_gather_windows_lk_sides_bitwise(cuda_device, side):
         assert torch.equal(got, twg.gather_windows_plain(pimg, ys, xs, side - 1))
 
 
+def _frame_720p(device):
+    """One 1280 x 720 view of the ``_render`` panorama and its 512 Harris
+    keypoints at the SLAMConfig defaults."""
+    pano = synth.make_panorama(
+        theta_range=(-0.6, 0.6), phi_range=(-0.35, 0.2), texels_per_rad=2200.0, seed=1
+    )
+    intr = Intrinsics.create(640.0, 360.0)
+    frame = synth.render_image(pano, np.array([0.02, -0.05, 2000.0], np.float32), intr, 1280, 720)
+    img = torch.from_numpy(np.asarray(frame, np.float32)).to(device)
+    kp = detect_keypoints(img, 512, threshold=SLAMConfig().detector_threshold)
+    assert int(kp.valid.sum()) > 400
+    return img, kp.xy, kp.valid
+
+
+def _f_and_plain(img, xy, valid, scale):
+    """Kernel F (one launch, no window gather) and the plain route on the
+    card (one gather, no F) on the same inputs."""
+    s = None if scale is None else torch.tensor(scale, dtype=torch.float32, device=img.device)
+    f0, b0 = tdesc.launches, twg.launches
+    got = tdesc.describe_keypoints(img, xy, valid, scale=s)
+    assert tdesc.launches == f0 + 1 and twg.launches == b0
+    ref = tdesc.describe_keypoints(img, xy, valid, scale=s, plain=True)
+    assert tdesc.launches == f0 + 1 and twg.launches == b0 + 1
+    return got, ref
+
+
+@pytest.mark.parametrize("scale", [None, 0.4, 1.0, 1.37, 2.5])
+def test_descriptor_kernel_matches_the_plain_route(cuda_device, scale):
+    """F against ``describe_keypoints(..., plain=True)`` at 512 keypoints on a
+    720p frame: within 1e-5 per component, zeros on invalid rows; three
+    calls bitwise equal."""
+    img, xy, valid = _frame_720p(cuda_device)
+    valid = valid.clone()
+    valid[-8:] = False
+    got, ref = _f_and_plain(img, xy, valid, scale)
+    assert got.shape == (512, tdesc.DESC_DIM) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+    assert not bool(got[~valid].any())
+    norms = torch.linalg.vector_norm(got[valid], dim=-1)
+    torch.testing.assert_close(norms, torch.ones_like(norms), rtol=0, atol=1e-5)
+    s = None if scale is None else torch.tensor(scale, dtype=torch.float32, device=cuda_device)
+    for _ in range(2):
+        assert torch.equal(tdesc.describe_keypoints(img, xy, valid, scale=s), got)
+
+
+def test_descriptor_kernel_at_other_table_sizes(cuda_device):
+    """K = 37 (a partial wave) and K = 0 (no launch, an empty result)."""
+    img, xy, valid = _frame_720p(cuda_device)
+    for scale in (None, 1.37):
+        got, ref = _f_and_plain(img, xy[:37].contiguous(), valid[:37].contiguous(), scale)
+        assert got.shape == (37, tdesc.DESC_DIM)
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+    f0 = tdesc.launches
+    empty = tdesc.describe_keypoints(img, xy[:0], valid[:0])
+    assert empty.shape == (0, tdesc.DESC_DIM) and tdesc.launches == f0
+
+
+@pytest.mark.parametrize("scale", [None, 0.4, 1.37, 2.5])
+def test_descriptor_kernel_edge_far_and_non_finite_rows(cuda_device, scale):
+    """Rows at the corners and edges, far off the image (past the int32
+    range too, where the conversion saturates and the start wraps as
+    torch's int32 does), invalid rows (one NaN) and valid non-finite rows:
+    F gives what the plain route gives on the card. A valid NaN row is all
+    NaN there; a valid infinite row is a finite descriptor at an edge."""
+    img, xy, valid = _frame_720p(cuda_device)
+    xy, valid = xy[:32].clone(), valid[:32].clone()
+    h, w = img.shape
+    xy[:14] = torch.tensor(
+        [[0.2, 0.3], [w - 1.1, h - 1.3], [0.0, h - 0.6], [w - 0.6, 0.0], [3.0, h / 2], [w / 2, h - 2.0],
+         [1e9, -1e9], [-1e9, 1e9], [3e9, -3e9], [-5e9, 5e9], [np.nan, 40.0], [np.inf, -np.inf],
+         [np.nan, np.nan], [w / 2, h / 2]],
+        device=cuda_device,
+    )
+    valid[:13] = True
+    valid[12:14] = False
+    got, ref = _f_and_plain(img, xy, valid, scale)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5, equal_nan=True)
+    assert not bool(got[12:14].any())
+    assert bool(torch.isnan(got[10]).all()) and bool(torch.isfinite(got[11]).all())
+    assert bool(torch.isfinite(got[:10]).all())
+
+
+def test_descriptor_kernel_refuses_what_it_does_not_take(cuda_device):
+    """A wrong dtype, a wrong device or a non-contiguous input raises before
+    any launch; nothing falls back to the plain route."""
+    img, xy, valid = _frame_720p(cuda_device)
+    s = torch.tensor(1.0, device=cuda_device)
+    f0, b0 = tdesc.launches, twg.launches
+    bad = (
+        (img.double(), xy, valid, s), (img, xy.double(), valid, s), (img, xy, valid.to(torch.uint8), s),
+        (img, xy, valid, s.double()), (img, xy.cpu(), valid, s), (img, xy, valid.cpu(), s),
+        (img, xy, valid, s.cpu()), (img.cpu(), xy, valid, s), (img.T, xy, valid, s),
+        (img, xy.T.contiguous().T, valid, s), (img, xy, valid, torch.ones(2, device=cuda_device)),
+        (img, xy[:, 0], valid, s), (img[None], xy, valid, s),
+    )
+    for args in bad:
+        with pytest.raises(ValueError, match="describe_keypoints"):
+            tdesc.describe_kernel(*args)
+    with pytest.raises(ValueError, match="describe_keypoints"):
+        tdesc.describe_keypoints(img, xy.cpu(), valid)   # a CPU table for a card image
+    assert tdesc.launches == f0 and twg.launches == b0
+
+
 def _lk_pair(device):
     imgs, _, _ = _render(30)
     frames = torch.from_numpy(imgs[:2]).to(device)
@@ -269,20 +372,21 @@ def _klt_run(dev, imgs, cams, intr):
     frames = torch.from_numpy(imgs).to(dev)
     xy0, d0, v0 = extract_features(frames[0], slam.cfg)
     state = slam.init(xy0, d0, v0, cams[0])
-    b0, e0 = twg.launches, tflow.launches
+    b0, e0, f0 = twg.launches, tflow.launches, tdesc.launches
     state, infos, xy, valid = slam.run_segment_pixels_klt(state, frames[1:], frames[0], xy0, v0)
-    return slam, state, infos, (twg.launches - b0, tflow.launches - e0)
+    return slam, state, infos, (twg.launches - b0, tflow.launches - e0, tdesc.launches - f0)
 
 
 def test_klt_slice_on_card_matches_cpu(cuda_device):
-    """KLT mode on the card (kernels A-E) and on the CPU: the same flags,
-    poses within 5e-4 rad and 2 px, and a frame's launches: one of kernel E
-    (the flow) and one window gather (the descriptors)."""
+    """KLT mode on the card (kernels A and C-F) and on the CPU: the same
+    flags, poses within 5e-4 rad and 2 px, and a frame's launches: one of
+    kernel E (the flow), one of kernel F (the descriptors) and no window
+    gather."""
     imgs, cams, intr = _render(30)
     imgs = imgs[:14]
     _, _, i_cpu, _ = _klt_run("cpu", imgs, cams, intr)
-    _, _, i_gpu, (gathers, flows) = _klt_run(cuda_device, imgs, cams, intr)
-    assert gathers == flows == len(imgs) - 1
+    _, _, i_gpu, (gathers, flows, descs) = _klt_run(cuda_device, imgs, cams, intr)
+    assert flows == descs == len(imgs) - 1 and gathers == 0
     for name in ("lost", "event", "keyframe"):
         np.testing.assert_array_equal(getattr(i_gpu, name).cpu().numpy(), getattr(i_cpu, name).numpy())
     assert int(i_gpu.keyframe.sum()) >= 2 and not bool(i_gpu.lost.any())
