@@ -68,11 +68,15 @@ Phases, each of which raises (non-zero exit) on failure:
    blackout, relocalize, track every frame from 15 frames after it with a
    pan error under 3e-3 rad, and the counters must again equal the call
    sites' counts (the matcher also once per relocalization frame). (d) The
-   4c sequence again, in each reloc mode, over 40 tracked frames and the
-   relocalization frames, and the sequence in KLT mode over 40 tracked
-   frames: wall time per frame (one pass, its launches counted: one of each
-   kernel a KLT frame) and device time and kernels per frame (a second
-   pass, under the profiler). (e) The whole sequence in KLT mode (``init``
+   4c sequence again, in each reloc mode, through the graph route (the
+   default: each tracked re-detect frame the replay of one CUDA graph) and
+   the eager route (``PTZSlam(..., _graphs=False)``) in turns, over 40
+   tracked frames, the insert frame (120, ten times from the same state)
+   and the relocalization frames, and the sequence in KLT mode over 40
+   tracked frames: wall time per frame (one pass, its launches counted: one
+   of each kernel a KLT frame) and device time and kernels per frame (a
+   second pass, under the profiler); the graph route's capture and
+   instantiation time. (e) The whole sequence in KLT mode (``init``
    + ``run_segment_pixels_klt`` seeded with frame 0's features): no lost
    frame, pan MAE < 3e-3 rad, windowed BA ran, the counters equal to the
    call sites' counts (kernel E once a KLT frame, kernel F once at ``init``
@@ -84,7 +88,12 @@ Phases, each of which raises (non-zero exit) on failure:
    cameras, 4,096 rays, 24,576 observations, 20 LM iterations) beside
    scipy's fp64 solver. (g) 4b's sequence to frame 96, ``save_pytree``,
    ``load_pytree`` into a fresh state, frames 97 on: flags and poses
-   bitwise those of the uninterrupted 4b run.
+   bitwise those of the uninterrupted 4b run. (h) The graph route against
+   the eager route over 4d's tracked frames 40-79, one frame a call, in
+   map mode, in keyframe mode and with a mask of three boxes: every
+   FrameInfo and the final state bitwise equal, the same launches, and
+   exactly one wait of the host for the card a frame (sync debug mode) on
+   the graph route.
 
 5. the CLI (``ptzjax_torch.run``) on the card, each run with the counters
    set to 0 just before it and read just after: (a) ``run.main`` in-process
@@ -1032,40 +1041,54 @@ def blackout_phase(imgs: torch.Tensor, cams, intr, mode: str, card: str) -> dict
     return counts
 
 
+INSERT_FRAME = 120    # the cadence insert (and its windowed BA) of 4b's sequence
+INSERT_REPEATS = 10   # 4d runs it this many times from the same state
+
+
 def frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
-    """4d: device time and wall time per frame kind, over 40 tracked frames
-    (40-79) and the relocalization frames (141-147) of the 4c sequence, in
-    each reloc mode. Frames in a window run one per call with a sync after
-    each; one pass times their wall clock, a second pass runs the profiler
-    over them (its per-launch cost would swell a wall time)."""
+    """4d: wall and device time and kernels per frame kind, in each reloc
+    mode, through the graph route (the default): 40 tracked frames
+    (40-79), the insert frame (INSERT_FRAME, run INSERT_REPEATS times from
+    the state before it: a replay, then the insert and the windowed BA) and
+    the relocalization frames (141-147) of the 4c sequence; and the tracked
+    frames through the eager route (``_graphs=False``), the two routes'
+    wall passes in turns. (The insert and reloc frames run eagerly on both
+    routes but for the insert frame's replay.) Frames run one per call with
+    a sync after each; one pass times their wall clock, a second pass runs
+    the profiler over them (its per-launch cost would swell a wall time).
+    The graph route's capture and instantiation is set-up, printed apart."""
     from ptzjax_torch.config import SLAMConfig
     from ptzjax_torch.frontend import extract_features
     from ptzjax_torch.slam import PTZSlam
 
     dark = imgs.clone()
     dark[BLACKOUT.start:BLACKOUT.stop] = 0.0
-    # (kind, frames, event): no frame of either window inserts a keyframe
+    # (kind, frames, event + 2 * keyframe)
     windows = (
         ("tracked", range(40, 80), 0),
+        ("insert", range(INSERT_FRAME, INSERT_FRAME + 1), 2),
         ("reloc", range(BLACKOUT.start + 1, BLACKOUT.stop + 1), 1),
     )
 
-    def run(mode: str, traced: bool) -> dict:
-        slam = PTZSlam(SLAMConfig(reloc_mode=mode), intr)   # the card, by default
+    def run(mode: str, graphs: bool, traced: bool) -> dict:
+        slam = PTZSlam(SLAMConfig(reloc_mode=mode), intr, _graphs=graphs)   # the card, by default
         state = slam.init(*extract_features(dark[0], slam.cfg), cams[0])
         at, out = 1, {}
-        for kind, frames, event in windows:
+        for kind, frames, event in windows if graphs else windows[:1]:
             state, _ = slam.run_segment_pixels(state, dark[at:frames.start])
             torch.cuda.synchronize()
             at = frames.stop
+            reps = INSERT_REPEATS if kind == "insert" else 1
             walls, events = [], []
             with profiled() if traced else contextlib.nullcontext() as prof:
                 for f in frames:
-                    t0 = time.perf_counter()
-                    state, info = slam.run_segment_pixels(state, dark[f:f + 1])
-                    torch.cuda.synchronize()
-                    walls.append(time.perf_counter() - t0)
-                    events.append(int(info.event[0]) + 2 * int(info.keyframe[0]))
+                    before = state
+                    for _ in range(reps):
+                        t0 = time.perf_counter()
+                        state, info = slam.run_segment_pixels(before, dark[f:f + 1])
+                        torch.cuda.synchronize()
+                        walls.append(time.perf_counter() - t0)
+                        events.append(int(info.event[0]) + 2 * int(info.keyframe[0]))
             check(all(e == event for e in events), f"4d {mode}: frames {frames} ran events {events}")
             if not traced:
                 out[kind] = float(np.median(walls)) * 1e3
@@ -1076,24 +1099,101 @@ def frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
             for e in kernels:
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
             out[kind] = (
-                sum(by_name.values()) / len(frames) / 1e3, len(kernels) / len(frames),
+                sum(by_name.values()) / len(walls) / 1e3, len(kernels) / len(walls),
                 sorted(by_name.items(), key=lambda kv: -kv[1])[:4],
             )
+        if graphs and not traced:
+            out["capture_s"] = [g.capture_s for g in slam._graphs.graphs.values()]
         return out
 
     for mode in ("map", "keyframe"):
-        walls = run(mode, False)
-        traced = repeat_until_same(lambda: run(mode, True), lambda r: tuple(v[1] for v in r.values()))
-        for kind, frames, _ in windows:
-            device_ms, per_frame, top = traced[kind]
-            nf = len(frames)
-            print(
-                f"4d {kind} frames {frames.start}-{frames.stop - 1} (no keyframe insert), "
-                f"reloc_mode={mode}: wall median {walls[kind]:.3f} ms, device {device_ms:.4f} ms a "
-                f"frame ({per_frame:.1f} kernels, busy {100 * device_ms / walls[kind]:.1f}%); largest: "
-                + "; ".join(f"{name[:60]} {us / nf / 1e3:.4f} ms" for name, us in top)
-                + f" [{card}]"
+        walls, traced = {}, {}
+        for graphs in (True, False, False, True):
+            walls.setdefault(graphs, []).append(run(mode, graphs, False))
+        for graphs in (True, False):
+            traced[graphs] = repeat_until_same(
+                lambda: run(mode, graphs, True), lambda r: tuple(v[1] for v in r.values())
             )
+        print(
+            f"4d reloc_mode={mode}, graph route: capture + instantiation "
+            + ", ".join(f"{1e3 * c:.1f} ms" for w in walls[True] for c in w["capture_s"])
+            + f" (one graph a PTZSlam, set-up) [{card}]"
+        )
+        for kind, frames, _ in windows:
+            for graphs in (True, False) if kind == "tracked" else (True,):
+                device_ms, per_frame, top = traced[graphs][kind]
+                wall = float(np.median([w[kind] for w in walls[graphs]]))
+                nf = len(frames) * (INSERT_REPEATS if kind == "insert" else 1)
+                print(
+                    f"4d {kind} frames {frames.start}-{frames.stop - 1}"
+                    + (f" x{INSERT_REPEATS} from one state" if kind == "insert" else "")
+                    + f", reloc_mode={mode}, {'graph' if graphs else 'eager'} route: wall median {wall:.3f} ms "
+                    f"(passes {', '.join(f'{w[kind]:.3f}' for w in walls[graphs])}), device {device_ms:.4f} ms "
+                    f"a frame ({per_frame:.1f} kernels, busy {100 * device_ms / wall:.1f}%); largest: "
+                    + "; ".join(f"{name[:60]} {us / nf / 1e3:.4f} ms" for name, us in top)
+                    + f" [{card}]"
+                )
+
+
+def graph_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
+    """4h: the graph route against the eager route (``_graphs=False``) over
+    4d's tracked frames 40-79, one frame a call, in map mode, in keyframe
+    mode and with a mask of three boxes on every frame: every FrameInfo
+    and the final state bitwise equal, the same launches, and the host's
+    waits for the card (sync debug mode) on each frame: exactly one on the
+    graph route, at its flag read."""
+    from ptzjax_torch.checkpoint import tree_flatten
+    from ptzjax_torch.config import SLAMConfig
+    from ptzjax_torch.frontend import extract_features
+    from ptzjax_torch.slam import PTZSlam
+
+    frames = range(40, 80)
+    boxes = torch.ones(imgs.shape[1:], dtype=torch.bool, device=imgs.device)
+    for y0, y1, x0, x1 in ((100, 300, 200, 400), (450, 700, 900, 1200), (0, 120, 1100, 1280)):
+        boxes[y0:y1, x0:x1] = False
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    def same(a, b) -> bool:
+        return all(torch.equal(bits(x), bits(y)) for x, y in zip(tree_flatten(a)[0], tree_flatten(b)[0]))
+
+    for mode, masked in (("map", False), ("keyframe", False), ("map", True)):
+        masks = boxes.expand(imgs.shape) if masked else None
+        runs = {}
+        for graphs in (True, False):
+            slam = PTZSlam(SLAMConfig(reloc_mode=mode), intr, _graphs=graphs)
+            held = [slam.init(*extract_features(imgs[0], slam.cfg), cams[0]), None]
+            held[0], _ = slam.run_segment_pixels(held[0], imgs[1:frames.start], None if masks is None else masks[1:frames.start])
+            reset_counts()
+            infos, waits = [], []
+            for f in frames:
+                def call():
+                    held[0], held[1] = slam.run_segment_pixels(
+                        held[0], imgs[f:f + 1], None if masks is None else masks[f:f + 1]
+                    )
+
+                waits.append(sync_sites(call))
+                infos.append(held[1])
+            capture = [g.capture_s for g in slam._graphs.graphs.values()] if graphs else None
+            runs[graphs] = held[0], infos, waits, read_counts(), capture
+        (s_g, i_g, w_g, n_g, capture), (s_e, i_e, w_e, n_e, _) = runs[True], runs[False]
+        differ = [f for f, a, b in zip(frames, i_g, i_e) if not same(a, b)]
+        check(not differ, f"4h {mode} masked={masked}: frames {differ} differ between the graph and eager routes")
+        check(same(s_g, s_e), f"4h {mode} masked={masked}: the final states differ")
+        check(n_g == n_e, f"4h {mode} masked={masked}: launches {n_g} (graph) and {n_e} (eager)")
+        check(not any(bool(i.lost[0]) or bool(i.keyframe[0]) for i in i_e), f"4h {mode}: a frame lost or inserted")
+        check(
+            all(len(w) == 1 and "_graphs.py" in w[0] for w in w_g),
+            f"4h {mode} masked={masked}: graph-route waits per frame {[w for w in w_g if len(w) != 1][:3]}",
+        )
+        print(
+            f"4h graph route vs eager, tracked frames {frames.start}-{frames.stop - 1}, reloc_mode={mode}, "
+            f"mask {'3 boxes' if masked else 'none'}: FrameInfos and final state bitwise equal; launches "
+            f"{n_g} both; host waits a frame graph {sorted({len(w) for w in w_g})} at {sorted(set(sum(w_g, [])))}, "
+            f"eager {sorted({len(w) for w in w_e})} at {sorted(set(sum(w_e, [])))}; capture + instantiation "
+            f"{', '.join(f'{1e3 * c:.1f} ms' for c in capture)} [{card}]"
+        )
 
 
 def frame_walls(imgs: torch.Tensor, cams, intr, card: str) -> str:
@@ -1772,6 +1872,8 @@ def main() -> int:
     # 4d. device time per frame kind (after the counted runs)
     frame_phase(imgs, cams, intr, card)
     by_path["klt_frames_40_79"] = klt_frame_phase(imgs, cams, intr, card)
+    # 4h. the graph route against the eager one
+    graph_phase(imgs, cams, intr, card)
 
     # 4f. whole-map BA on the 4b state, and the BA bench problem
     ba_phase(state, intr, dev, card)

@@ -336,8 +336,7 @@ int launch(const float* s, float* l, int* info, float* work, int n, int device,
            cudaStream_t stream) {
   const auto kernel = cholesky_cluster<SMEM>;
   const size_t smem = SMEM ? smem_bytes(n) : 0;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = cudaSuccess;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = CLUSTER;
@@ -350,12 +349,22 @@ int launch(const float* s, float* l, int* info, float* work, int n, int device,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // whether one cluster of this size fits, asked once per device and size
+  // the shared-memory opt-in, only ever raised, and whether one cluster of
+  // this size fits, asked once per device and size: a launch inside a
+  // CUDA-graph capture makes no other call, and no later launch of a
+  // smaller matrix lowers the opt-in below what a captured launch needs
   static int known_device = -1;
+  static size_t opted_in[2] = {0, 0};
   static size_t known_smem[2] = {~(size_t)0, ~(size_t)0};
   if (known_device != device) {
     known_device = device;
+    opted_in[0] = opted_in[1] = 0;
     known_smem[0] = known_smem[1] = ~(size_t)0;
+  }
+  if (smem > opted_in[SMEM]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    opted_in[SMEM] = smem;
   }
   if (known_smem[SMEM] != smem) {
     int clusters = 0;

@@ -11,11 +11,14 @@ keyframe policy (insert + windowed BA) or, while lost, relocalization.
 The reference selects branches with ``lax.cond`` inside one ``lax.scan``;
 here the scan is a Python loop over frames and each ``lax.cond`` is a Python
 ``if`` on a flag read from the device (see ``_frame_step``). All other
-decisions stay on the device as selects.
+decisions stay on the device as selects. On the card the re-detect loop
+replays each tracked frame, up to its insert flag (``_track_step``), as one
+CUDA graph (``_graphs.py``).
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Any, NamedTuple
 
 import torch
@@ -82,10 +85,35 @@ class PTZSlam:
     one frame at a time).
     """
 
-    def __init__(self, cfg: SLAMConfig, intr: Intrinsics, device=None):
+    def __init__(self, cfg: SLAMConfig, intr: Intrinsics, device=None, _graphs: bool = True):
         self.cfg = cfg
         self.intr = intr
         self.device = _device.resolve(device)
+        # On the card run_segment_pixels replays each tracked frame as one
+        # CUDA graph (``_graphs.py``); ``_graphs=False`` asks for the eager
+        # route there, for the card's parity checks and A/B timings.
+        self._graphs = None
+        if _graphs and self.device.type == "cuda":
+            from ptzjax_torch._graphs import Runner
+
+            self._graphs = Runner(self.device)
+        # (weak reference to the ``lost`` tensor of the last state returned,
+        # its value): the next call's first frame takes the previous frame's
+        # read instead of reading the flag again
+        self._lost_seen: tuple[weakref.ref, bool] | None = None
+
+    def _lost_of(self, state: SlamState) -> bool:
+        """``state.lost`` on the host: known where ``state`` carries the flag
+        of the last state this object returned (no step writes into a
+        tensor), else read (one device sync)."""
+        seen = self._lost_seen
+        if seen is not None and seen[0]() is state.lost:
+            return seen[1]
+        return bool(state.lost)
+
+    def _returned(self, state: SlamState, lost: bool) -> SlamState:
+        self._lost_seen = (weakref.ref(state.lost), lost)
+        return state
 
     def init(self, xy, desc, valid, pose0) -> SlamState:
         """First-frame bootstrap from a known pose. Resolves
@@ -103,11 +131,14 @@ class PTZSlam:
             lost=_scalar(False, torch.bool, dev),
             frame_idx=_scalar(0, torch.int32, dev),
         )
-        return _bootstrap(state, xy, desc, valid, cfg=cfg, intr=self.intr)
+        return self._returned(_bootstrap(state, xy, desc, valid, cfg=cfg, intr=self.intr), False)
 
     def step(self, state: SlamState, xy, desc, valid) -> tuple[SlamState, FrameInfo]:
         """One frame from features."""
-        return _frame_step(state, xy, desc, valid, cfg=self.cfg, intr=self.intr)
+        state, info, lost = _frame_step(
+            state, xy, desc, valid, cfg=self.cfg, intr=self.intr, lost=self._lost_of(state)
+        )
+        return self._returned(state, lost), info
 
     def process(self, state: SlamState, xy, desc, valid) -> tuple[SlamState, dict[str, Any]]:
         """One frame from features (tensors or arrays) + its host info dict."""
@@ -126,9 +157,11 @@ class PTZSlam:
         xy_seq, desc_seq, valid_seq = (
             torch.as_tensor(v, device=self.device) for v in (xy_seq, desc_seq, valid_seq)
         )
-        return _run_segment(
-            state, xy_seq, desc_seq, valid_seq, frame_ok, cfg=self.cfg, intr=self.intr
+        state, infos, lost = _run_segment(
+            state, xy_seq, desc_seq, valid_seq, frame_ok, cfg=self.cfg, intr=self.intr,
+            lost=self._lost_of(state),
         )
+        return self._returned(state, lost), infos
 
     def run_segment_pixels(
         self, state: SlamState, imgs, masks=None, frame_ok=None
@@ -139,10 +172,23 @@ class PTZSlam:
         device when its turn comes. ``frame_ok`` (T,) marks real frames (a
         False frame passes the state through).
 
+        On the card each tracked frame is the replay of one CUDA graph
+        (frontend, track step and keyframe predicates) and one read of its
+        (lost, insert) flags; insert and relocalization frames run eagerly
+        (``_graphs.Runner``). The results are bitwise the eager route's.
+
         Returns the final state and the FrameInfo fields stacked over T."""
-        return _run_segment_pixels(
-            state, imgs, masks, frame_ok, cfg=self.cfg, intr=self.intr, device=self.device
-        )
+        lost = self._lost_of(state)
+        if self._graphs is not None:
+            state, infos, lost = self._graphs.run_segment_pixels(
+                state, imgs, masks, frame_ok, cfg=self.cfg, intr=self.intr, lost=lost
+            )
+        else:
+            state, infos, lost = _run_segment_pixels(
+                state, imgs, masks, frame_ok, cfg=self.cfg, intr=self.intr, device=self.device,
+                lost=lost,
+            )
+        return self._returned(state, lost), infos
 
     def run_segment_pixels_klt(
         self, state: SlamState, imgs, prev_img, prev_xy, prev_valid, frame_ok=None, masks=None,
@@ -158,10 +204,11 @@ class PTZSlam:
 
         Returns (state, infos stacked over T, last_xy, last_valid): the
         table of the last real frame, to seed the next chunk."""
-        return _run_segment_pixels_klt(
+        state, infos, xy, valid, lost = _run_segment_pixels_klt(
             state, imgs, frame_ok, prev_img, prev_xy, prev_valid, masks,
-            cfg=self.cfg, intr=self.intr, device=self.device,
+            cfg=self.cfg, intr=self.intr, device=self.device, lost=self._lost_of(state),
         )
+        return self._returned(state, lost), infos, xy, valid
 
     def bundle_adjust(self, state: SlamState) -> tuple[SlamState, dict[str, Any]]:
         """BA over the whole map (all keyframes, robust when
@@ -180,9 +227,11 @@ class PTZSlam:
         xy, desc, valid, pose, inl = (
             torch.as_tensor(v, device=dev) for v in (xy, desc, valid, res.pose, res.matched_ok)
         )
-        return _apply_external_reloc(
-            state, xy, desc, valid, pose, inl, bool(res.success), cfg=self.cfg, intr=self.intr
+        success = bool(res.success)
+        state = _apply_external_reloc(
+            state, xy, desc, valid, pose, inl, success, cfg=self.cfg, intr=self.intr
         )
+        return self._returned(state, False) if success else state
 
 
 def _bootstrap(state: SlamState, xy, desc, valid, *, cfg, intr) -> SlamState:
@@ -393,13 +442,15 @@ def _relocalize(state: SlamState, xy, desc, valid, *, cfg, intr):
     """Recover from lost tracking, then rebuild the EKF around the recovered
     pose with the inlier rays (one host read of the success flag).
     ``cfg.reloc_mode`` selects the backend: "map" matches the global ray
-    store, "keyframe" does the nearest-keyframe lookup."""
+    store, "keyframe" does the nearest-keyframe lookup. Returns (state,
+    info, success as a host bool)."""
     dev = xy.device
     if cfg.reloc_mode == "keyframe":
         res = reloclib.relocalize_keyframes(desc, xy, valid, state.kf, state.rays, intr, cfg)
     else:
         res = reloclib.relocalize(desc, xy, valid, state.rays, intr, cfg)
-    if bool(res.success):
+    success = bool(res.success)
+    if success:
         ekf_state = ekflib.init_state(res.pose, cfg)
         # seed slots with the reloc inlier rays at their map positions
         ids = torch.where(res.matched_ok, res.matched_ray_ids, -1)
@@ -433,7 +484,7 @@ def _relocalize(state: SlamState, xy, desc, valid, *, cfg, intr):
         keyframe=_scalar(False, torch.bool, dev),
         reloc_success=res.success,
     )
-    return new_state, info
+    return new_state, info, success
 
 
 def _apply_external_reloc(
@@ -522,16 +573,16 @@ def _windowed_ba(state: SlamState, *, cfg, intr) -> SlamState:
     )
 
 
-def _frame_step(state: SlamState, xy, desc, valid, *, cfg, intr):
-    """One frame: relocalize while lost, else track and apply the keyframe
-    policy (insert + windowed BA).
+def _track_step(state: SlamState, xy, desc, valid, *, cfg, intr):
+    """The device part of a tracked frame, with no host read: ``_track_frame``
+    and the keyframe policy's predicates (overlap, zoom, cadence) -- the
+    reference's ``do_track`` branch up to its insert ``lax.cond``
+    (``ptzjax/slam.py:_frame_step``). On the card ``_graphs`` captures it,
+    with the frontend, as one CUDA graph.
 
-    Host reads (each a device sync): ``state.lost`` every frame; the insert
-    flag on every tracked frame; ``kf.count >= 2`` on every insert; the
-    relocalization's success flag on every lost frame."""
-    if bool(state.lost):
-        return _relocalize(state, xy, desc, valid, cfg=cfg, intr=intr)
-
+    Returns (state, info with ``keyframe`` = the insert predicate, flags):
+    ``flags`` is one (2,) bool tensor, (lost, insert), the only thing the
+    host reads of the frame."""
     s2, info = _track_frame(state, xy, desc, valid, cfg=cfg, intr=intr)
     healthy = ~info.lost
     insert = healthy & (info.max_kf_overlap < cfg.keyframe_overlap)
@@ -545,13 +596,39 @@ def _frame_step(state: SlamState, xy, desc, valid, *, cfg, intr):
         # without an insert
         last_kf = torch.where(s2.kf.valid, s2.kf.frame_idx, -1).amax()
         insert = insert | (healthy & ((s2.frame_idx - last_kf) >= cfg.keyframe_interval))
+    return s2, info._replace(keyframe=insert), torch.stack([info.lost, insert])
 
-    if bool(insert):
-        s2 = _insert_keyframe(s2, xy, desc, valid, cfg=cfg, intr=intr)
-        # local BA needs >= 2 keyframes for a meaningful system
-        if cfg.online_ba_iters > 0 and bool(s2.kf.count >= 2):
-            s2 = _windowed_ba(s2, cfg=cfg, intr=intr)
-    return s2, info._replace(keyframe=insert)
+
+def _keyframe(state: SlamState, xy, desc, valid, *, cfg, intr) -> tuple[SlamState, bool]:
+    """The insert branch: ``_insert_keyframe`` and, with >= 2 keyframes, the
+    windowed BA. Returns the state and its lost flag as a host bool (the
+    BA's drift watchdog may set it). Host reads: ``kf.count >= 2``, and the
+    lost flag after the BA."""
+    state = _insert_keyframe(state, xy, desc, valid, cfg=cfg, intr=intr)
+    # local BA needs >= 2 keyframes for a meaningful system
+    if cfg.online_ba_iters > 0 and bool(state.kf.count >= 2):
+        state = _windowed_ba(state, cfg=cfg, intr=intr)
+        return state, bool(state.lost)
+    return state, False
+
+
+def _frame_step(state: SlamState, xy, desc, valid, *, cfg, intr, lost: bool):
+    """One frame: relocalize while lost, else track and apply the keyframe
+    policy (insert + windowed BA).
+
+    ``lost`` is ``state.lost`` as a host bool, which the caller carries from
+    the frame before. Returns (state, info, the new state's lost flag as a
+    host bool). Host reads (each a device sync): the (lost, insert) flags of
+    a tracked frame, once; ``_keyframe``'s two on an insert; the
+    relocalization's success flag on a lost frame."""
+    if lost:
+        state, info, success = _relocalize(state, xy, desc, valid, cfg=cfg, intr=intr)
+        return state, info, not success
+    s2, info, flags = _track_step(state, xy, desc, valid, cfg=cfg, intr=intr)
+    lost, insert = flags.tolist()
+    if insert:
+        s2, lost = _keyframe(s2, xy, desc, valid, cfg=cfg, intr=intr)
+    return s2, info, lost
 
 
 def _skip_info(s: SlamState) -> FrameInfo:
@@ -579,26 +656,29 @@ def _stack(infos: list[FrameInfo]) -> FrameInfo:
     return FrameInfo(*(torch.stack(list(field)) for field in zip(*infos)))
 
 
-def _run_segment(state: SlamState, xy_seq, desc_seq, valid_seq, frame_ok, *, cfg, intr):
+def _run_segment(state: SlamState, xy_seq, desc_seq, valid_seq, frame_ok, *, cfg, intr, lost: bool):
     """Features -> SLAM step, frame by frame; a False ``frame_ok`` frame is a
-    no-op."""
+    no-op. ``lost`` is ``state.lost`` on the host; returns (state, stacked
+    infos, the final state's lost flag)."""
     infos = []
     for i, ok in enumerate(_frame_flags(frame_ok, xy_seq.shape[0])):
         if ok:
-            state, info = _frame_step(
-                state, xy_seq[i], desc_seq[i], valid_seq[i], cfg=cfg, intr=intr
+            state, info, lost = _frame_step(
+                state, xy_seq[i], desc_seq[i], valid_seq[i], cfg=cfg, intr=intr, lost=lost
             )
         else:
             info = _skip_info(state)
         infos.append(info)
-    return state, _stack(infos)
+    return state, _stack(infos), lost
 
 
-def _run_segment_pixels(state: SlamState, imgs, masks, frame_ok, *, cfg, intr, device):
+def _run_segment_pixels(state: SlamState, imgs, masks, frame_ok, *, cfg, intr, device, lost: bool):
     """Raw frames -> features -> SLAM step, frame by frame, each frame (and
-    mask) moved to ``device`` in its turn. The descriptor scale uses the
-    LIVE focal estimate, sanitized: a non-finite or non-positive focal falls
-    back to the bootstrap f_ref."""
+    mask) moved to ``device`` in its turn: the eager route (the CPU's, and
+    the card's where ``PTZSlam(..., _graphs=False)`` asks for it). The
+    descriptor scale uses the LIVE focal estimate, sanitized: a non-finite
+    or non-positive focal falls back to the bootstrap f_ref. ``lost`` as in
+    ``_run_segment``."""
     t = imgs.shape[0]
     ok = _frame_flags(frame_ok, t)
     infos = []
@@ -610,9 +690,9 @@ def _run_segment_pixels(state: SlamState, imgs, masks, frame_ok, *, cfg, intr, d
         xy, desc, valid = extract_features(
             torch.as_tensor(imgs[i], device=device), cfg, mask=mask, focal=_safe_focal(state, cfg)
         )
-        state, info = _frame_step(state, xy, desc, valid, cfg=cfg, intr=intr)
+        state, info, lost = _frame_step(state, xy, desc, valid, cfg=cfg, intr=intr, lost=lost)
         infos.append(info)
-    return state, _stack(infos)
+    return state, _stack(infos), lost
 
 
 def _safe_focal(state: SlamState, cfg) -> torch.Tensor:
@@ -624,11 +704,13 @@ def _safe_focal(state: SlamState, cfg) -> torch.Tensor:
 
 
 def _run_segment_pixels_klt(
-    state: SlamState, imgs, frame_ok, prev_img, prev_xy, prev_valid, masks, *, cfg, intr, device
+    state: SlamState, imgs, frame_ok, prev_img, prev_xy, prev_valid, masks, *, cfg, intr, device,
+    lost: bool,
 ):
     """KLT mode, frame by frame: the previous frame and keypoint table ride
     the carry; ``track_features`` moves the table, refills it and describes
-    it; a False ``frame_ok`` frame passes state and carry through."""
+    it; a False ``frame_ok`` frame passes state and carry through. ``lost``
+    as in ``_run_segment``."""
     ok = _frame_flags(frame_ok, imgs.shape[0])
     pimg, pxy, pvalid = (torch.as_tensor(v, device=device) for v in (prev_img, prev_xy, prev_valid))
     infos = []
@@ -641,10 +723,10 @@ def _run_segment_pixels_klt(
         xy, desc, valid, _ = track_features(
             pimg, img, pxy, pvalid, cfg, mask=mask, focal=_safe_focal(state, cfg)
         )
-        state, info = _frame_step(state, xy, desc, valid, cfg=cfg, intr=intr)
+        state, info, lost = _frame_step(state, xy, desc, valid, cfg=cfg, intr=intr, lost=lost)
         infos.append(info)
         pimg, pxy, pvalid = img, xy, valid
-    return state, _stack(infos), pxy, pvalid
+    return state, _stack(infos), pxy, pvalid, lost
 
 
 def _run_ba(state: SlamState, *, cfg, intr):

@@ -738,3 +738,197 @@ def test_torchrun_offline_on_every_card(cuda_device, tmp_path):
     np.testing.assert_array_equal(pose_n, pose_1)
     for key in ("ba_cost_before", "ba_cost_after"):
         np.testing.assert_allclose(s_n[key], s_1[key], rtol=1e-4)
+
+
+# the CUDA-graph route of run_segment_pixels (ptzjax_torch/_graphs.py)
+
+
+def _bench_frames(num_frames):
+    """``bench.py``'s 720p sequence (chip_smoke.py's ``render``)."""
+    pano = synth.make_panorama(seed=0)
+    intr = Intrinsics.create(640.0, 360.0)
+    cams = synth.make_trajectory(
+        num_frames, pan_amp=0.12, tilt0=-0.05, tilt_amp=0.02, f0=2000.0, f_amp=250.0, period=192.0, seed=0
+    )
+    return np.stack([synth.render_image(pano, c, intr, 1280, 720) for c in cams]).astype(np.float32), cams, intr
+
+
+def _small_cfg(**kw) -> SLAMConfig:
+    """The 640x360 card tests' configuration (at 30 frames it tracks every
+    frame; the cadence inserts none before frame 120)."""
+    return SLAMConfig(
+        image_width=W, image_height=H, max_keypoints=160, max_rays=96, max_map_rays=1024,
+        max_keyframes=16, min_inliers=10, **kw,
+    )
+
+
+def _leaves(tree):
+    return tckpt.tree_flatten(tree)[0]
+
+
+def _bitwise(a, b) -> bool:
+    """Two trees of tensors equal bit for bit (NaN garbage included)."""
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    return all(torch.equal(bits(x), bits(y)) for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def _frame_by_frame(slam, state, frames, masks=None, stop=None):
+    """One frame a call from frame 1 (to ``stop``): (state, infos as a list)."""
+    infos = []
+    for f in range(1, stop or frames.shape[0]):
+        state, info = slam.run_segment_pixels(state, frames[f:f + 1], None if masks is None else masks[f:f + 1])
+        infos.append(info)
+    return state, infos
+
+
+@pytest.mark.parametrize("mode, masked", [("map", False), ("keyframe", False), ("map", True)])
+def test_graph_route_is_the_eager_route_bitwise(cuda_device, mode, masked):
+    """``bench.py``'s 720p sequence, frames 1-79 one a call (40-79 are 4d's
+    tracked frames), through the graph route and through the eager route
+    (``_graphs=False``): every FrameInfo and the final state bitwise equal,
+    the same launches, one graph captured."""
+    imgs, cams, intr = _bench_frames(80)
+    frames = torch.from_numpy(imgs).to(cuda_device)
+    masks = None
+    if masked:
+        masks = torch.ones(frames.shape, dtype=torch.bool, device=cuda_device)
+        masks[:, 100:300, 200:400] = False
+        masks[:, 450:700, 900:1200] = False
+    out = {}
+    for graphs in (True, False):
+        slam = PTZSlam(SLAMConfig(reloc_mode=mode), intr, _graphs=graphs)
+        state = slam.init(*extract_features(frames[0], slam.cfg), cams[0])
+        before = (thn.launches, thn.masked_launches, tkm.launches, tch.launches, tdesc.launches)
+        state, infos = _frame_by_frame(slam, state, frames, masks)
+        after = (thn.launches, thn.masked_launches, tkm.launches, tch.launches, tdesc.launches)
+        out[graphs] = state, infos, tuple(a - b for a, b in zip(after, before)), slam
+    (s_g, i_g, n_g, slam_g), (s_e, i_e, n_e, _) = out[True], out[False]
+    assert all(_bitwise(a, b) for a, b in zip(i_g, i_e)) and _bitwise(s_g, s_e)
+    assert n_g == n_e == (79, 79 if masked else 0, 79, 79, 79)
+    assert len(slam_g._graphs.graphs) == 1 and not any(bool(i.lost[0]) for i in i_g)
+
+
+@pytest.mark.parametrize("mode", ["map", "keyframe"])
+def test_graph_route_inserts_and_relocalizes_as_the_eager_route(cuda_device, mode):
+    """The 640x360 blackout sequence with a keyframe every 6 frames, in
+    chunks: the eager insert and relocalization frames between replays give
+    bitwise the eager route's states and infos."""
+    imgs, cams, intr = _render(30)
+    imgs[14:18] = 0.0
+    cfg = _small_cfg(keyframe_interval=6, reloc_mode=mode)
+    frames = torch.from_numpy(imgs).to(cuda_device)
+    out = {}
+    for graphs in (True, False):
+        slam = PTZSlam(cfg, intr, _graphs=graphs)
+        state = slam.init(*extract_features(frames[0], slam.cfg), cams[0])
+        infos = []
+        for a, b in ((1, 5), (5, 6), (6, 16), (16, 30)):
+            state, part = slam.run_segment_pixels(state, frames[a:b])
+            infos.append(part)
+        out[graphs] = state, infos
+    (s_g, i_g), (s_e, i_e) = out[True], out[False]
+    assert all(_bitwise(a, b) for a, b in zip(i_g, i_e)) and _bitwise(s_g, s_e)
+    keyframe = torch.cat([p.keyframe for p in i_e]).cpu().numpy()
+    event = torch.cat([p.event for p in i_e]).cpu().numpy()
+    assert keyframe.sum() >= 3 and (event == 1).sum() >= 1
+
+
+def test_graph_route_keeps_the_callers_state_and_replays_a_rewound_one(cuda_device):
+    """A call leaves the state it was given bit for bit, returns tensors of
+    its own, and a state kept from before (the forest's rewind) replayed
+    gives the first run's result."""
+    imgs, cams, intr = _render(30)
+    cfg = _small_cfg()
+    frames = torch.from_numpy(imgs).to(cuda_device)
+    slam = PTZSlam(cfg, intr)
+    state = slam.init(*extract_features(frames[0], slam.cfg), cams[0])
+    mid, _ = slam.run_segment_pixels(state, frames[1:8])
+    kept = [v.clone() for v in _leaves(mid)]
+    end, infos = slam.run_segment_pixels(mid, frames[8:16])
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(mid), kept))
+    bufs = {v.data_ptr() for g in slam._graphs.graphs.values() for v in _leaves(g.state)}
+    assert not bufs & {v.data_ptr() for v in _leaves(end)}
+    again, infos2 = slam.run_segment_pixels(mid, frames[8:16])
+    assert _bitwise(end, again) and _bitwise(infos, infos2)
+
+
+def test_graph_replays_credit_the_counters_and_read_the_card_once(cuda_device):
+    """Each replay adds one launch of A, C, D and F (and a masked A) to the
+    counters, the capture none; a tracked frame waits for the card once
+    (sync debug mode), at the flag read."""
+    import warnings
+
+    imgs, cams, intr = _render(30)
+    cfg = _small_cfg()
+    frames = torch.from_numpy(imgs).to(cuda_device)
+    masks = torch.ones(frames.shape, dtype=torch.bool, device=cuda_device)
+    masks[:, 50:120, 80:200] = False
+    slam = PTZSlam(cfg, intr)
+    state = slam.init(*extract_features(frames[0], slam.cfg), cams[0])
+    counters = (thn, "launches"), (thn, "masked_launches"), (tkm, "launches"), (tch, "launches"), (tdesc, "launches")
+    before = [getattr(m, a) for m, a in counters]
+    state, infos = slam.run_segment_pixels(state, frames[1:12], masks[1:12])
+    assert not bool(infos.keyframe.any()) and not bool(infos.lost.any())
+    assert [getattr(m, a) - b for (m, a), b in zip(counters, before)] == [11] * 5
+    waits = []
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, _ = slam.run_segment_pixels(state, frames[12:13], masks[12:13])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        waits = [w for w in caught if "called a synchronizing" in str(w.message)]
+    assert len(waits) == 1
+
+
+def test_two_instances_with_live_graphs_do_not_disturb_each_other(cuda_device):
+    """Two ``PTZSlam``s with captured graphs on two sequences, their calls
+    interleaved: each gives bitwise its eager run."""
+    imgs_a, cams_a, intr = _render(30, seed=1)
+    imgs_b, cams_b, _ = _render(30, seed=3)
+    cfg = _small_cfg()
+    seqs = [(torch.from_numpy(i).to(cuda_device), c) for i, c in ((imgs_a, cams_a), (imgs_b, cams_b))]
+    want = []
+    for frames, cams in seqs:
+        slam = PTZSlam(cfg, intr, _graphs=False)
+        state = slam.init(*extract_features(frames[0], slam.cfg), cams[0])
+        want.append(_frame_by_frame(slam, state, frames))
+    slams = [PTZSlam(cfg, intr) for _ in seqs]
+    states = [s.init(*extract_features(f[0], s.cfg), c[0]) for s, (f, c) in zip(slams, seqs)]
+    infos = [[], []]
+    for f in range(1, 30):
+        for k, (slam, (frames, _)) in enumerate(zip(slams, seqs)):
+            states[k], info = slam.run_segment_pixels(states[k], frames[f:f + 1])
+            infos[k].append(info)
+    for k in range(2):
+        assert _bitwise(states[k], want[k][0]) and all(_bitwise(a, b) for a, b in zip(infos[k], want[k][1]))
+
+
+def test_host_read_in_the_captured_step_makes_the_capture_raise(cuda_device, monkeypatch):
+    """A host read put inside the step: the first frame (eager) runs, the
+    capture raises, and so does the next call; nothing falls back to the
+    eager route. Last in the file: it leaves a failed capture behind."""
+    from ptzjax_torch import slam as tslam
+
+    imgs, cams, intr = _render(30)
+    cfg = _small_cfg()
+    frames = torch.from_numpy(imgs).to(cuda_device)
+    slam = PTZSlam(cfg, intr)
+    state = slam.init(*extract_features(frames[0], slam.cfg), cams[0])
+    step = tslam._track_step
+
+    def reading_step(*args, **kw):
+        out = step(*args, **kw)
+        bool(out[2][0])
+        return out
+
+    monkeypatch.setattr(tslam, "_track_step", reading_step)
+    with pytest.raises(RuntimeError):
+        slam.run_segment_pixels(state, frames[1:3])
+    with pytest.raises(RuntimeError):
+        slam.run_segment_pixels(state, frames[1:3])
+    assert all(g._replay is None for g in slam._graphs.graphs.values())

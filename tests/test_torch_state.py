@@ -225,7 +225,7 @@ def test_relocalize_branch_rebuilds_the_filter(shared):
     reloc_j = jax.jit(partial(jslam._relocalize, cfg=cfg, intr=intr))
     ref_state, ref_info = jax.device_get(reloc_j(jstate._replace(lost=jnp.asarray(True)), xy, desc, valid))
     lost_t = convert.state_from_jax_numpy(host, "cpu")._replace(lost=torch.tensor(True))
-    got_state, got_info = tslam._relocalize(
+    got_state, got_info, _ = tslam._relocalize(
         lost_t, t(xy), t(desc), t(valid), cfg=port_cfg(cfg), intr=port_intr(intr)
     )
     assert bool(ref_info.reloc_success) and bool(got_info.reloc_success)
@@ -270,7 +270,7 @@ def test_keyframe_reloc_mode_rebuilds_the_filter(shared):
     reloc_j = jax.jit(partial(jslam._relocalize, cfg=cfg, intr=intr))
     ref_state, ref_info = jax.device_get(reloc_j(jstate._replace(lost=jnp.asarray(True)), xy, desc, valid))
     lost_t = convert.state_from_jax_numpy(host, "cpu")._replace(lost=torch.tensor(True))
-    got_state, got_info = tslam._relocalize(
+    got_state, got_info, _ = tslam._relocalize(
         lost_t, t(xy), t(desc), t(valid), cfg=port_cfg(cfg), intr=port_intr(intr)
     )
     assert bool(ref_info.reloc_success) and bool(got_info.reloc_success)
