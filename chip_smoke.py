@@ -8,8 +8,8 @@ Run from the root of a checkout, on a machine with one CUDA card:
 detection-stage line of 3a, through the public ``detect_keypoints``, so a
 copy of this script placed at the root of an earlier checkout measures that
 checkout's detection stage; ``--frame-walls`` likewise prints only the wall
-medians of 4d's tracked frames in re-detect and in KLT mode, through the
-public entry points.)
+medians of 4d's tracked frames in re-detect, KLT and features mode, through
+the public entry points.)
 
 Phases, each of which raises (non-zero exit) on failure:
 
@@ -72,11 +72,15 @@ Phases, each of which raises (non-zero exit) on failure:
    default: each tracked re-detect frame the replay of one CUDA graph) and
    the eager route (``PTZSlam(..., _graphs=False)``) in turns, over 40
    tracked frames, the insert frame (120, ten times from the same state)
-   and the relocalization frames, and the sequence in KLT mode over 40
-   tracked frames: wall time per frame (one pass, its launches counted: one
-   of each kernel a KLT frame) and device time and kernels per frame (a
-   second pass, under the profiler); the graph route's capture and
-   instantiation time. (e) The whole sequence in KLT mode (``init``
+   and the relocalization frames; and the same 40 tracked frames in KLT
+   mode and in features mode (``run_segment`` on the re-detect frontend's
+   features, staged before the clock as ``--offline`` stages them), each
+   through the graph route (each tracked frame a replay) and the eager
+   route in turns: wall time per frame (passes with their launches
+   counted: one of each kernel a KLT frame, C and D a features frame) and
+   device time and kernels per frame (a pass under the profiler); each
+   graph's capture and instantiation time. (e) The whole sequence in KLT
+   mode (``init``
    + ``run_segment_pixels_klt`` seeded with frame 0's features): no lost
    frame, pan MAE < 3e-3 rad, windowed BA ran, the counters equal to the
    call sites' counts (kernel E once a KLT frame, kernel F once at ``init``
@@ -90,10 +94,11 @@ Phases, each of which raises (non-zero exit) on failure:
    ``load_pytree`` into a fresh state, frames 97 on: flags and poses
    bitwise those of the uninterrupted 4b run. (h) The graph route against
    the eager route over 4d's tracked frames 40-79, one frame a call, in
-   map mode, in keyframe mode and with a mask of three boxes: every
-   FrameInfo and the final state bitwise equal, the same launches, and
-   exactly one wait of the host for the card a frame (sync debug mode) on
-   the graph route.
+   re-detect, KLT and features mode, in map mode, in keyframe mode and
+   (re-detect, KLT) with a mask of three boxes: every FrameInfo, the final
+   state and the KLT carry bitwise equal, the same launches, and exactly
+   one wait of the host for the card a frame (sync debug mode) on the
+   graph route.
 
 5. the CLI (``ptzjax_torch.run``) on the card, each run with the counters
    set to 0 just before it and read just after: (a) ``run.main`` in-process
@@ -186,9 +191,14 @@ def profiled():
 
 
 def device_kernels(prof) -> list:
+    """(name, microseconds) of each device record of a closed profiler
+    session, read from the profiler's raw records: building its event tree
+    (``prof.events()``) takes seconds for the ~40,000 records of 40
+    frames."""
     from torch.autograd import DeviceType
 
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.profiler.kineto_results.events()
+    return [(e.name(), e.duration_ns() / 1e3) for e in events if e.device_type() == DeviceType.CUDA]
 
 
 def device_time(fn, batch: int = 50, per_call: int | None = None, tries: int = 4) -> tuple[float, dict]:
@@ -212,15 +222,15 @@ def device_time(fn, batch: int = 50, per_call: int | None = None, tries: int = 4
                 fn()
         kernels = device_kernels(prof)
         names: dict = {}
-        for e in kernels:
-            names[e.name] = names.get(e.name, 0) + 1
+        for name, _ in kernels:
+            names[name] = names.get(name, 0) + 1
         n = len(kernels)
         if per_call is not None:
             check(n <= per_call * batch, f"{len(names)} kernel names, {n / batch} kernels per call: {names}")
             done = n == per_call * batch
         else:
             done = n > 0 and n in seen
-        total_us = sum(e.time_range.elapsed_us() for e in kernels)
+        total_us = sum(us for _, us in kernels)
         if done:
             return total_us / batch / 1e3, names
         if seen or per_call is not None:
@@ -1096,8 +1106,8 @@ def frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
             kernels = device_kernels(prof)
             check(kernels, "the profiler recorded no device time")
             by_name: dict = {}
-            for e in kernels:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            for name, us in kernels:
+                by_name[name] = by_name.get(name, 0.0) + us
             out[kind] = (
                 sum(by_name.values()) / len(walls) / 1e3, len(kernels) / len(walls),
                 sorted(by_name.items(), key=lambda kv: -kv[1])[:4],
@@ -1135,95 +1145,144 @@ def frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
                 )
 
 
-def graph_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
-    """4h: the graph route against the eager route (``_graphs=False``) over
-    4d's tracked frames 40-79, one frame a call, in map mode, in keyframe
-    mode and with a mask of three boxes on every frame: every FrameInfo
-    and the final state bitwise equal, the same launches, and the host's
-    waits for the card (sync debug mode) on each frame: exactly one on the
-    graph route, at its flag read."""
-    from ptzjax_torch.checkpoint import tree_flatten
+TRACKED = range(40, 80)   # 4d's and 4h's tracked frames (no insert, no loss)
+
+
+def staged_features(imgs: torch.Tensor, cams, frames: int):
+    """The re-detect frontend's features of frames [0, ``frames``), staged
+    on the card for features mode as ``--offline`` stages them: the
+    descriptor scale anchored on frame 0's focal (which ``init`` makes
+    ``descriptor_f_ref``). Made before any clock starts."""
     from ptzjax_torch.config import SLAMConfig
     from ptzjax_torch.frontend import extract_features
-    from ptzjax_torch.slam import PTZSlam
 
-    frames = range(40, 80)
+    f0 = float(cams[0][2])
+    cfg = SLAMConfig(descriptor_f_ref=f0)
+    out = [extract_features(imgs[k], cfg, focal=f0) for k in range(frames)]
+    return tuple(torch.stack([f[i] for f in out]) for i in range(3))
+
+
+class Loop:
+    """One ``PTZSlam`` at the SLAMConfig defaults (``reloc_mode`` aside),
+    bootstrapped by ``init`` on frame 0 and driven through a public entry
+    point: ``run_segment_pixels`` ("re-detect"), ``run_segment_pixels_klt``
+    ("KLT", the carry threaded from call to call: the chunk's last frame and
+    the table it returned) or ``run_segment`` ("features", on
+    ``staged_features``). ``graphs=False`` asks for the eager route (the
+    default constructor otherwise, so that an older checkout runs it)."""
+
+    def __init__(self, kind: str, imgs, cams, intr, *, mode="map", graphs=True, masks=None, feats=None):
+        from ptzjax_torch.config import SLAMConfig
+        from ptzjax_torch.frontend import extract_features
+        from ptzjax_torch.slam import PTZSlam
+
+        cfg = SLAMConfig(reloc_mode=mode)
+        self.slam = PTZSlam(cfg, intr) if graphs else PTZSlam(cfg, intr, _graphs=False)
+        self.kind, self.imgs, self.masks, self.feats = kind, imgs, masks, feats
+        first = tuple(v[0] for v in feats) if kind == "features" else extract_features(imgs[0], self.slam.cfg)
+        self.state = self.slam.init(*first, cams[0])
+        self.carry = (imgs[0], first[0], first[2])
+        self.at = 1
+
+    def run(self, stop: int):
+        """Frames [at, ``stop``) in one call: their stacked infos."""
+        a, slam = self.at, self.slam
+        masks = None if self.masks is None else self.masks[a:stop]
+        if self.kind == "re-detect":
+            self.state, infos = slam.run_segment_pixels(self.state, self.imgs[a:stop], masks)
+        elif self.kind == "KLT":
+            self.state, infos, xy, valid = slam.run_segment_pixels_klt(
+                self.state, self.imgs[a:stop], *self.carry, masks=masks
+            )
+            self.carry = (self.imgs[stop - 1], xy, valid)
+        else:
+            self.state, infos = slam.run_segment(self.state, *(v[a:stop] for v in self.feats))
+        self.at = stop
+        return infos
+
+    def captures(self) -> list:
+        """Each graph's capture + instantiation seconds."""
+        return [g.capture_s for g in self.slam._graphs.graphs.values()]
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _same(a, b) -> bool:
+    from ptzjax_torch.checkpoint import tree_flatten
+
+    la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+    return len(la) == len(lb) and all(torch.equal(_bits(x), _bits(y)) for x, y in zip(la, lb))
+
+
+def graph_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
+    """4h: the graph route against the eager route (``_graphs=False``) over
+    the tracked frames 40-79, one frame a call, in re-detect, KLT and
+    features mode (``run_segment`` on ``staged_features``), in map mode, in
+    keyframe mode and (re-detect, KLT) with a mask of three boxes on every
+    frame: every FrameInfo, the final state and the KLT carry bitwise
+    equal, the same launches, and the host's waits for the card (sync debug
+    mode) on each frame: exactly one on the graph route, at its flag
+    read."""
     boxes = torch.ones(imgs.shape[1:], dtype=torch.bool, device=imgs.device)
     for y0, y1, x0, x1 in ((100, 300, 200, 400), (450, 700, 900, 1200), (0, 120, 1100, 1280)):
         boxes[y0:y1, x0:x1] = False
-
-    def bits(x):
-        return x.view(torch.int32) if x.dtype == torch.float32 else x
-
-    def same(a, b) -> bool:
-        return all(torch.equal(bits(x), bits(y)) for x, y in zip(tree_flatten(a)[0], tree_flatten(b)[0]))
-
-    for mode, masked in (("map", False), ("keyframe", False), ("map", True)):
+    feats = staged_features(imgs, cams, TRACKED.stop)
+    cases = [(kind, mode, False) for kind in ("re-detect", "KLT", "features") for mode in ("map", "keyframe")]
+    cases += [("re-detect", "map", True), ("KLT", "map", True)]
+    for kind, mode, masked in cases:
         masks = boxes.expand(imgs.shape) if masked else None
         runs = {}
         for graphs in (True, False):
-            slam = PTZSlam(SLAMConfig(reloc_mode=mode), intr, _graphs=graphs)
-            held = [slam.init(*extract_features(imgs[0], slam.cfg), cams[0]), None]
-            held[0], _ = slam.run_segment_pixels(held[0], imgs[1:frames.start], None if masks is None else masks[1:frames.start])
+            loop = Loop(kind, imgs, cams, intr, mode=mode, graphs=graphs, masks=masks, feats=feats)
+            loop.run(TRACKED.start)
             reset_counts()
             infos, waits = [], []
-            for f in frames:
-                def call():
-                    held[0], held[1] = slam.run_segment_pixels(
-                        held[0], imgs[f:f + 1], None if masks is None else masks[f:f + 1]
-                    )
-
-                waits.append(sync_sites(call))
-                infos.append(held[1])
-            capture = [g.capture_s for g in slam._graphs.graphs.values()] if graphs else None
-            runs[graphs] = held[0], infos, waits, read_counts(), capture
-        (s_g, i_g, w_g, n_g, capture), (s_e, i_e, w_e, n_e, _) = runs[True], runs[False]
-        differ = [f for f, a, b in zip(frames, i_g, i_e) if not same(a, b)]
-        check(not differ, f"4h {mode} masked={masked}: frames {differ} differ between the graph and eager routes")
-        check(same(s_g, s_e), f"4h {mode} masked={masked}: the final states differ")
-        check(n_g == n_e, f"4h {mode} masked={masked}: launches {n_g} (graph) and {n_e} (eager)")
-        check(not any(bool(i.lost[0]) or bool(i.keyframe[0]) for i in i_e), f"4h {mode}: a frame lost or inserted")
+            for f in TRACKED:
+                waits.append(sync_sites(lambda: infos.append(loop.run(f + 1))))
+            runs[graphs] = loop.state, infos, waits, read_counts(), loop.carry[1:], loop.captures() if graphs else None
+        (s_g, i_g, w_g, n_g, c_g, capture), (s_e, i_e, w_e, n_e, c_e, _) = runs[True], runs[False]
+        what = f"4h {kind} reloc_mode={mode} masked={masked}"
+        differ = [f for f, a, b in zip(TRACKED, i_g, i_e) if not _same(a, b)]
+        check(not differ, f"{what}: frames {differ} differ between the graph and eager routes")
+        check(_same(s_g, s_e), f"{what}: the final states differ")
+        check(all(torch.equal(a, b) for a, b in zip(c_g, c_e)), f"{what}: the KLT carries differ")
+        check(n_g == n_e, f"{what}: launches {n_g} (graph) and {n_e} (eager)")
+        check(not any(bool(i.lost[0]) or bool(i.keyframe[0]) for i in i_e), f"{what}: a frame lost or inserted")
         check(
             all(len(w) == 1 and "_graphs.py" in w[0] for w in w_g),
-            f"4h {mode} masked={masked}: graph-route waits per frame {[w for w in w_g if len(w) != 1][:3]}",
+            f"{what}: graph-route waits per frame {[w for w in w_g if len(w) != 1][:3]}",
         )
         print(
-            f"4h graph route vs eager, tracked frames {frames.start}-{frames.stop - 1}, reloc_mode={mode}, "
-            f"mask {'3 boxes' if masked else 'none'}: FrameInfos and final state bitwise equal; launches "
-            f"{n_g} both; host waits a frame graph {sorted({len(w) for w in w_g})} at {sorted(set(sum(w_g, [])))}, "
-            f"eager {sorted({len(w) for w in w_e})} at {sorted(set(sum(w_e, [])))}; capture + instantiation "
-            f"{', '.join(f'{1e3 * c:.1f} ms' for c in capture)} [{card}]"
+            f"4h graph route vs eager, {kind}, tracked frames {TRACKED.start}-{TRACKED.stop - 1}, reloc_mode={mode}, "
+            f"mask {'3 boxes' if masked else 'none'}: FrameInfos, final state{' and carry' if kind == 'KLT' else ''} "
+            f"bitwise equal; launches {n_g} both; host waits a frame graph {sorted({len(w) for w in w_g})} at "
+            f"{sorted(set(sum(w_g, [])))}, eager {sorted({len(w) for w in w_e})} at {sorted(set(sum(w_e, [])))}; "
+            f"capture + instantiation {', '.join(f'{1e3 * c:.1f} ms' for c in capture)} [{card}]"
         )
 
 
 def frame_walls(imgs: torch.Tensor, cams, intr, card: str) -> str:
     """The wall medians of 4d's tracked frames 40-79 (map mode, no keyframe
-    insert) in re-detect and in KLT mode, the two modes in turns, one frame
-    a call with a sync after each. Uses only the public entry points, so the
-    same code times an earlier checkout (``--frame-walls``)."""
-    from ptzjax_torch.config import SLAMConfig
-    from ptzjax_torch.frontend import extract_features
-    from ptzjax_torch.slam import PTZSlam
-
-    frames = range(40, 80)
-    slam = PTZSlam(SLAMConfig(), intr)
-    xy0, desc0, valid0 = extract_features(imgs[0], slam.cfg)
-    state = slam.init(xy0, desc0, valid0, cams[0])
-    redetect, _ = slam.run_segment_pixels(state, imgs[1:frames.start])
-    klt, _, xy, valid = slam.run_segment_pixels_klt(state, imgs[1:frames.start], imgs[0], xy0, valid0)
-    walls: dict = {"re-detect": [], "KLT": []}
-    for f in frames:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        redetect, _ = slam.run_segment_pixels(redetect, imgs[f:f + 1])
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        klt, _, xy, valid = slam.run_segment_pixels_klt(klt, imgs[f:f + 1], imgs[f - 1], xy, valid)
-        torch.cuda.synchronize()
-        walls["re-detect"].append((t1 - t0) * 1e3)
-        walls["KLT"].append((time.perf_counter() - t1) * 1e3)
-    return f"frame walls, tracked frames {frames.start}-{frames.stop - 1}: " + ", ".join(
-        f"{mode} median {np.median(w):.3f} ms" for mode, w in walls.items()
+    insert) in re-detect, KLT and features mode (features staged before the
+    clock), the modes in turns, one frame a call with a sync after each.
+    Uses only the public entry points, so the same code times an earlier
+    checkout (``--frame-walls``)."""
+    feats = staged_features(imgs, cams, TRACKED.stop)
+    loops = {kind: Loop(kind, imgs, cams, intr, feats=feats) for kind in ("re-detect", "KLT", "features")}
+    walls: dict = {kind: [] for kind in loops}
+    for loop in loops.values():
+        loop.run(TRACKED.start)
+    for f in TRACKED:
+        for kind, loop in loops.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop.run(f + 1)
+            torch.cuda.synchronize()
+            walls[kind].append((time.perf_counter() - t0) * 1e3)
+    return f"frame walls, tracked frames {TRACKED.start}-{TRACKED.stop - 1}: " + ", ".join(
+        f"{kind} median {np.median(w):.3f} ms" for kind, w in walls.items()
     ) + f" [{card}]"
 
 
@@ -1260,55 +1319,71 @@ def klt_phase(imgs: torch.Tensor, cams, intr, card: str):
     return counts
 
 
-def klt_frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> dict:
-    """4d, KLT mode: 40 tracked frames (40-79) run one per call with a sync
-    after each; one pass for the wall clock, its launches counted (each
-    kernel once a frame), a second under the profiler. Returns the
-    counts."""
-    from ptzjax_torch.config import SLAMConfig
-    from ptzjax_torch.frontend import extract_features
-    from ptzjax_torch.slam import PTZSlam
+def mode_frame_phase(imgs: torch.Tensor, cams, intr, card: str, kind: str) -> dict:
+    """4d, KLT mode ("KLT") or features mode ("features": ``run_segment`` on
+    ``staged_features``, made before the clock): the 40 tracked frames
+    40-79 one a call with a sync after each, through the graph route (the
+    default) and the eager route (``_graphs=False``): a wall pass of each
+    in turns (graph, eager, eager, graph), the launches of every pass
+    counted (each kernel of the mode once a frame), then a pass of each
+    under the profiler. Prints wall, device, kernels and busy share a frame
+    and the graph's capture + instantiation time; returns the first graph
+    pass's launch counts."""
+    feats = staged_features(imgs, cams, TRACKED.stop) if kind == "features" else None
+    nf = len(TRACKED)
 
-    frames = range(40, 80)
-
-    def run(traced: bool):
-        slam = PTZSlam(SLAMConfig(), intr)
-        xy, desc, valid = extract_features(imgs[0], slam.cfg)
-        state = slam.init(xy, desc, valid, cams[0])
-        state, _, xy, valid = slam.run_segment_pixels_klt(state, imgs[1:frames.start], imgs[0], xy, valid)
+    def run(graphs: bool, traced: bool):
+        loop = Loop(kind, imgs, cams, intr, graphs=graphs, feats=feats)
+        loop.run(TRACKED.start)
         torch.cuda.synchronize()
         walls, events = [], []
         reset_counts()
         with profiled() if traced else contextlib.nullcontext() as prof:
-            for f in frames:
+            for f in TRACKED:
                 t0 = time.perf_counter()
-                state, info, xy, valid = slam.run_segment_pixels_klt(state, imgs[f:f + 1], imgs[f - 1], xy, valid)
+                info = loop.run(f + 1)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
                 events.append(int(info.event[0]) + 2 * int(info.keyframe[0]))
-        check(all(e == 0 for e in events), f"4d KLT: frames {frames} ran events {events}")
-        return float(np.median(walls)) * 1e3, prof, read_counts()
+        check(all(e == 0 for e in events), f"4d {kind}: frames {TRACKED} ran events {events}")
+        return float(np.median(walls)) * 1e3, prof, read_counts(), loop.captures() if graphs else []
 
-    wall, _, counts = run(False)
-    want = {**dict.fromkeys(COUNTER_NAMES, len(frames)), "gather_windows": 0}
-    print(f"4d KLT tracked frames {frames.start}-{frames.stop - 1}: launches {counts}")
-    check(counts == want, f"4d KLT: launches {counts}, call sites give {want}")
-    kernels = repeat_until_same(lambda: device_kernels(run(True)[1]), lambda k: (len(k),))
-    check(kernels, "the profiler recorded no device time")
-    by_name: dict = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    nf = len(frames)
-    device_ms = sum(by_name.values()) / nf / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    walls: dict = {True: [], False: []}
+    counts, captures = {}, []
+    for graphs in (True, False, False, True):
+        wall, _, c, capture = run(graphs, False)
+        walls[graphs].append(wall)
+        captures += capture
+        counts.setdefault(graphs, []).append(c)
+    each = nf if kind == "KLT" else 0
+    want = {
+        **dict.fromkeys(COUNTER_NAMES, each), "gather_windows": 0, "match_scores": nf, "cholesky": nf,
+    }
+    print(f"4d {kind} tracked frames {TRACKED.start}-{TRACKED.stop - 1}: launches {counts[True][0]}")
+    for graphs, cs in counts.items():
+        check(all(c == want for c in cs), f"4d {kind} graphs={graphs}: launches {cs}, call sites give {want}")
     print(
-        f"4d KLT tracked frames {frames.start}-{frames.stop - 1} (no keyframe insert): wall median "
-        f"{wall:.3f} ms, device {device_ms:.4f} ms a frame ({len(kernels) / nf:.1f} kernels, busy "
-        f"{100 * device_ms / wall:.1f}%); largest: "
-        + "; ".join(f"{name[:60]} {us / nf / 1e3:.4f} ms" for name, us in top)
-        + f" [{card}]"
+        f"4d {kind}, graph route: capture + instantiation " + ", ".join(f"{1e3 * c:.1f} ms" for c in captures)
+        + f" (one graph a PTZSlam, set-up) [{card}]"
     )
-    return counts
+    for graphs in (True, False):
+        kernels = repeat_until_same(lambda: device_kernels(run(graphs, True)[1]), lambda k: (len(k),))
+        check(kernels, "the profiler recorded no device time")
+        by_name: dict = {}
+        for name, us in kernels:
+            by_name[name] = by_name.get(name, 0.0) + us
+        device_ms = sum(by_name.values()) / nf / 1e3
+        wall = float(np.median(walls[graphs]))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        print(
+            f"4d {kind} tracked frames {TRACKED.start}-{TRACKED.stop - 1} (no keyframe insert), "
+            f"{'graph' if graphs else 'eager'} route: wall median {wall:.3f} ms (passes "
+            f"{', '.join(f'{w:.3f}' for w in walls[graphs])}), device {device_ms:.4f} ms a frame "
+            f"({len(kernels) / nf:.1f} kernels, busy {100 * device_ms / wall:.1f}%); largest: "
+            + "; ".join(f"{name[:60]} {us / nf / 1e3:.4f} ms" for name, us in top)
+            + f" [{card}]"
+        )
+    return counts[True][0]
 
 
 def bench_ba_problem(dev, k: int = 32, m: int = 4096, c: int = 6, seed: int = 0):
@@ -1622,8 +1697,8 @@ def homography_frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
     kernels = repeat_until_same(traced, lambda k: (len(k),))
     check(kernels, "the profiler recorded no device time")
     by_name: dict = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for name, us in kernels:
+        by_name[name] = by_name.get(name, 0.0) + us
     device_ms = sum(by_name.values()) / 40 / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
     print(
@@ -1871,8 +1946,9 @@ def main() -> int:
 
     # 4d. device time per frame kind (after the counted runs)
     frame_phase(imgs, cams, intr, card)
-    by_path["klt_frames_40_79"] = klt_frame_phase(imgs, cams, intr, card)
-    # 4h. the graph route against the eager one
+    by_path["klt_frames_40_79"] = mode_frame_phase(imgs, cams, intr, card, "KLT")
+    by_path["features_frames_40_79"] = mode_frame_phase(imgs, cams, intr, card, "features")
+    # 4h. the graph route against the eager one, in every mode
     graph_phase(imgs, cams, intr, card)
 
     # 4f. whole-map BA on the 4b state, and the BA bench problem

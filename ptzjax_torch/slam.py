@@ -11,9 +11,11 @@ keyframe policy (insert + windowed BA) or, while lost, relocalization.
 The reference selects branches with ``lax.cond`` inside one ``lax.scan``;
 here the scan is a Python loop over frames and each ``lax.cond`` is a Python
 ``if`` on a flag read from the device (see ``_frame_step``). All other
-decisions stay on the device as selects. On the card the re-detect loop
-replays each tracked frame, up to its insert flag (``_track_step``), as one
-CUDA graph (``_graphs.py``).
+decisions stay on the device as selects. On the card the tracking loops
+(re-detect, KLT and features: ``run_segment_pixels``,
+``run_segment_pixels_klt``, ``run_segment`` and ``step``) replay each
+tracked frame, up to its insert flag (``_track_step``), as one CUDA graph
+(``_graphs.py``).
 """
 
 from __future__ import annotations
@@ -89,9 +91,11 @@ class PTZSlam:
         self.cfg = cfg
         self.intr = intr
         self.device = _device.resolve(device)
-        # On the card run_segment_pixels replays each tracked frame as one
-        # CUDA graph (``_graphs.py``); ``_graphs=False`` asks for the eager
-        # route there, for the card's parity checks and A/B timings.
+        # On the card the tracking loops (run_segment_pixels,
+        # run_segment_pixels_klt, run_segment, step and so process) replay
+        # each tracked frame as one CUDA graph (``_graphs.py``);
+        # ``_graphs=False`` asks for the eager route there, for the card's
+        # parity checks and A/B timings.
         self._graphs = None
         if _graphs and self.device.type == "cuda":
             from ptzjax_torch._graphs import Runner
@@ -134,10 +138,15 @@ class PTZSlam:
         return self._returned(_bootstrap(state, xy, desc, valid, cfg=cfg, intr=self.intr), False)
 
     def step(self, state: SlamState, xy, desc, valid) -> tuple[SlamState, FrameInfo]:
-        """One frame from features."""
-        state, info, lost = _frame_step(
-            state, xy, desc, valid, cfg=self.cfg, intr=self.intr, lost=self._lost_of(state)
-        )
+        """One frame from features. On the card a tracked frame is the
+        replay of one CUDA graph, as in ``run_segment``."""
+        lost = self._lost_of(state)
+        if self._graphs is not None:
+            state, info, lost = self._graphs.step(
+                state, xy, desc, valid, cfg=self.cfg, intr=self.intr, lost=lost
+            )
+        else:
+            state, info, lost = _frame_step(state, xy, desc, valid, cfg=self.cfg, intr=self.intr, lost=lost)
         return self._returned(state, lost), info
 
     def process(self, state: SlamState, xy, desc, valid) -> tuple[SlamState, dict[str, Any]]:
@@ -152,14 +161,22 @@ class PTZSlam:
     ) -> tuple[SlamState, FrameInfo]:
         """A chunk of frames from features: xy (T, Q, 2), desc (T, Q, D),
         valid (T, Q). ``frame_ok`` (T,) marks real frames (a False frame
-        passes the state through). Returns the final state and the FrameInfo
-        fields stacked over T."""
+        passes the state through).
+
+        On the card each tracked frame is the replay of one CUDA graph (the
+        track step and keyframe predicates on the frame's features, copied
+        in) and one read of its (lost, insert) flags; insert and
+        relocalization frames run eagerly (``_graphs.Runner``). The results
+        are bitwise the eager route's.
+
+        Returns the final state and the FrameInfo fields stacked over T."""
         xy_seq, desc_seq, valid_seq = (
             torch.as_tensor(v, device=self.device) for v in (xy_seq, desc_seq, valid_seq)
         )
-        state, infos, lost = _run_segment(
-            state, xy_seq, desc_seq, valid_seq, frame_ok, cfg=self.cfg, intr=self.intr,
-            lost=self._lost_of(state),
+        lost = self._lost_of(state)
+        run = self._graphs.run_segment if self._graphs is not None else _run_segment
+        state, infos, lost = run(
+            state, xy_seq, desc_seq, valid_seq, frame_ok, cfg=self.cfg, intr=self.intr, lost=lost
         )
         return self._returned(state, lost), infos
 
@@ -202,12 +219,25 @@ class PTZSlam:
         the state and the carry through). Inputs move to the device as in
         ``run_segment_pixels``.
 
+        On the card each tracked frame is the replay of one CUDA graph (the
+        KLT frontend on the carry, the track step and keyframe predicates,
+        and the carry moved on) and one read of its (lost, insert) flags;
+        insert and relocalization frames run eagerly (``_graphs.Runner``).
+        The results are bitwise the eager route's.
+
         Returns (state, infos stacked over T, last_xy, last_valid): the
         table of the last real frame, to seed the next chunk."""
-        state, infos, xy, valid, lost = _run_segment_pixels_klt(
-            state, imgs, frame_ok, prev_img, prev_xy, prev_valid, masks,
-            cfg=self.cfg, intr=self.intr, device=self.device, lost=self._lost_of(state),
-        )
+        lost = self._lost_of(state)
+        if self._graphs is not None:
+            state, infos, xy, valid, lost = self._graphs.run_segment_pixels_klt(
+                state, imgs, frame_ok, prev_img, prev_xy, prev_valid, masks,
+                cfg=self.cfg, intr=self.intr, lost=lost,
+            )
+        else:
+            state, infos, xy, valid, lost = _run_segment_pixels_klt(
+                state, imgs, frame_ok, prev_img, prev_xy, prev_valid, masks,
+                cfg=self.cfg, intr=self.intr, device=self.device, lost=lost,
+            )
         return self._returned(state, lost), infos, xy, valid
 
     def bundle_adjust(self, state: SlamState) -> tuple[SlamState, dict[str, Any]]:
@@ -578,7 +608,7 @@ def _track_step(state: SlamState, xy, desc, valid, *, cfg, intr):
     and the keyframe policy's predicates (overlap, zoom, cadence) -- the
     reference's ``do_track`` branch up to its insert ``lax.cond``
     (``ptzjax/slam.py:_frame_step``). On the card ``_graphs`` captures it,
-    with the frontend, as one CUDA graph.
+    with the frame's frontend (none in features mode), as one CUDA graph.
 
     Returns (state, info with ``keyframe`` = the insert predicate, flags):
     ``flags`` is one (2,) bool tensor, (lost, insert), the only thing the
@@ -658,8 +688,9 @@ def _stack(infos: list[FrameInfo]) -> FrameInfo:
 
 def _run_segment(state: SlamState, xy_seq, desc_seq, valid_seq, frame_ok, *, cfg, intr, lost: bool):
     """Features -> SLAM step, frame by frame; a False ``frame_ok`` frame is a
-    no-op. ``lost`` is ``state.lost`` on the host; returns (state, stacked
-    infos, the final state's lost flag)."""
+    no-op. The eager route (the CPU's, and the card's where ``PTZSlam(...,
+    _graphs=False)`` asks for it). ``lost`` is ``state.lost`` on the host;
+    returns (state, stacked infos, the final state's lost flag)."""
     infos = []
     for i, ok in enumerate(_frame_flags(frame_ok, xy_seq.shape[0])):
         if ok:
@@ -709,8 +740,9 @@ def _run_segment_pixels_klt(
 ):
     """KLT mode, frame by frame: the previous frame and keypoint table ride
     the carry; ``track_features`` moves the table, refills it and describes
-    it; a False ``frame_ok`` frame passes state and carry through. ``lost``
-    as in ``_run_segment``."""
+    it; a False ``frame_ok`` frame passes state and carry through. The
+    eager route (the CPU's, and the card's where ``PTZSlam(...,
+    _graphs=False)`` asks for it). ``lost`` as in ``_run_segment``."""
     ok = _frame_flags(frame_ok, imgs.shape[0])
     pimg, pxy, pvalid = (torch.as_tensor(v, device=device) for v in (prev_img, prev_xy, prev_valid))
     infos = []

@@ -908,6 +908,157 @@ def test_two_instances_with_live_graphs_do_not_disturb_each_other(cuda_device):
         assert _bitwise(states[k], want[k][0]) and all(_bitwise(a, b) for a, b in zip(infos[k], want[k][1]))
 
 
+# the graph routes of run_segment_pixels_klt and run_segment
+
+
+def _waits(call) -> int:
+    """The host's waits for the card during ``call`` (sync debug mode)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def _counts():
+    return (thn.launches, thn.masked_launches, tkm.launches, tch.launches, tdesc.launches, tflow.launches, twg.launches)
+
+
+def _one_frame_calls(slam, state, frames, masks, kind, feats):
+    """Frames 1-79 one a call through ``kind`` ("klt": each call seeded
+    with the carry the last one returned; "features": ``run_segment`` on
+    ``feats``): (state, infos, last (xy, valid), launches, the host's waits
+    on each call after the first)."""
+    xy, valid = feats[0][0], feats[2][0]
+    infos, waits = [], []
+    before = _counts()
+    for f in range(1, frames.shape[0]):
+        def call():
+            nonlocal state, xy, valid
+            if kind == "klt":
+                state, info, xy, valid = slam.run_segment_pixels_klt(
+                    state, frames[f:f + 1], frames[f - 1], xy, valid,
+                    masks=None if masks is None else masks[f:f + 1],
+                )
+            else:
+                state, info = slam.run_segment(state, *(v[f:f + 1] for v in feats))
+            infos.append(info)
+
+        if f == 1:
+            call()
+        else:
+            waits.append(_waits(call))
+    return state, infos, (xy, valid), tuple(a - b for a, b in zip(_counts(), before)), waits
+
+
+@pytest.mark.parametrize(
+    "kind, mode, masked",
+    [("klt", "map", False), ("klt", "keyframe", False), ("klt", "map", True), ("features", "map", False),
+     ("features", "keyframe", False)],
+)
+def test_klt_and_features_graph_routes_are_the_eager_route_bitwise(cuda_device, kind, mode, masked):
+    """``bench.py``'s 720p sequence, frames 1-79 one a call, in KLT mode and
+    in features mode (``run_segment`` on the re-detect frontend's features,
+    staged), through the graph route and through the eager route
+    (``_graphs=False``): every FrameInfo, the final state and the KLT carry
+    bitwise equal, the same launches, one graph of the kind captured, and
+    one host wait a tracked frame on the graph route."""
+    imgs, cams, intr = _bench_frames(80)
+    frames = torch.from_numpy(imgs).to(cuda_device)
+    masks = None
+    if masked:
+        masks = torch.ones(frames.shape, dtype=torch.bool, device=cuda_device)
+        masks[:, 100:300, 200:400] = False
+        masks[:, 450:700, 900:1200] = False
+    cfg = SLAMConfig(reloc_mode=mode)
+    staged = [extract_features(frames[k], cfg, mask=None if masks is None else masks[k]) for k in range(80)]
+    feats = tuple(torch.stack([f[i] for f in staged]) for i in range(3))
+    out = {}
+    for graphs in (True, False):
+        slam = PTZSlam(cfg, intr, _graphs=graphs)
+        state = slam.init(*(v[0] for v in feats), cams[0])
+        out[graphs] = (*_one_frame_calls(slam, state, frames, masks, kind, feats), slam)
+    (s_g, i_g, c_g, n_g, w_g, slam_g), (s_e, i_e, c_e, n_e, _, _) = out[True], out[False]
+    assert all(_bitwise(a, b) for a, b in zip(i_g, i_e)) and _bitwise(s_g, s_e)
+    assert all(torch.equal(a, b) for a, b in zip(c_g, c_e))
+    klt = kind == "klt"
+    assert n_g == n_e == (79 * klt, 79 * masked, 79, 79, 79 * klt, 79 * klt, 0)
+    assert [k[0] for k in slam_g._graphs.graphs] == [kind] and not any(bool(i.lost[0]) for i in i_g)
+    assert w_g == [1] * 78
+
+
+@pytest.mark.parametrize("kind", ["klt", "features"])
+@pytest.mark.parametrize("mode", ["map", "keyframe"])
+def test_klt_and_features_graph_routes_insert_and_relocalize_as_the_eager_route(cuda_device, kind, mode):
+    """The 640x360 blackout sequence with a keyframe every 6 frames, in
+    chunks, in KLT mode (each chunk seeded with the last one's carry) and in
+    features mode: the eager insert and relocalization frames between
+    replays give bitwise the eager route's states, infos and carry."""
+    imgs, cams, intr = _render(30)
+    imgs[14:18] = 0.0
+    cfg = _small_cfg(keyframe_interval=6, reloc_mode=mode)
+    frames = torch.from_numpy(imgs).to(cuda_device)
+    staged = [extract_features(frames[k], cfg) for k in range(30)]
+    feats = tuple(torch.stack([f[i] for f in staged]) for i in range(3))
+    out = {}
+    for graphs in (True, False):
+        slam = PTZSlam(cfg, intr, _graphs=graphs)
+        state = slam.init(*(v[0] for v in feats), cams[0])
+        xy, valid = feats[0][0], feats[2][0]
+        infos, carry = [], []
+        for a, b in ((1, 5), (5, 6), (6, 16), (16, 30)):
+            if kind == "klt":
+                state, part, xy, valid = slam.run_segment_pixels_klt(state, frames[a:b], frames[a - 1], xy, valid)
+                carry += [xy, valid]
+            else:
+                state, part = slam.run_segment(state, *(v[a:b] for v in feats))
+            infos.append(part)
+        out[graphs] = state, infos, carry
+    (s_g, i_g, c_g), (s_e, i_e, c_e) = out[True], out[False]
+    assert all(_bitwise(a, b) for a, b in zip(i_g, i_e)) and _bitwise(s_g, s_e)
+    assert all(torch.equal(a, b) for a, b in zip(c_g, c_e))
+    keyframe = torch.cat([p.keyframe for p in i_e]).cpu().numpy()
+    event = torch.cat([p.event for p in i_e]).cpu().numpy()
+    assert keyframe.sum() >= 3 and (event == 1).sum() >= 1
+
+
+def test_step_graph_route_is_the_eager_route_and_keeps_the_callers_state(cuda_device):
+    """``step`` one frame a call (640x360, 30 frames, through the
+    ``process`` that calls it on every third frame): bitwise the eager
+    route, the caller's state untouched, one features graph."""
+    imgs, cams, intr = _render(30)
+    cfg = _small_cfg(keyframe_interval=6)
+    frames = torch.from_numpy(imgs).to(cuda_device)
+    staged = [extract_features(frames[k], cfg) for k in range(30)]
+    out = {}
+    for graphs in (True, False):
+        slam = PTZSlam(cfg, intr, _graphs=graphs)
+        state = slam.init(*staged[0], cams[0])
+        infos = []
+        for k in range(1, 30):
+            kept = [v.clone() for v in _leaves(state)]
+            given = state
+            if k % 3:
+                state, info = slam.step(state, *staged[k])
+            else:
+                state, d = slam.process(state, *staged[k])
+                info = d["pose"]
+            assert all(torch.equal(a, b) for a, b in zip(_leaves(given), kept))
+            infos.append(info)
+        out[graphs] = state, infos, slam
+    (s_g, i_g, slam_g), (s_e, i_e, _) = out[True], out[False]
+    assert _bitwise(s_g, s_e)
+    for a, b in zip(i_g, i_e):
+        assert _bitwise(a, b) if isinstance(a, tuple) else np.array_equal(a.view(np.int32), b.view(np.int32))
+    assert [k[0] for k in slam_g._graphs.graphs] == ["features"]
+
+
 def test_host_read_in_the_captured_step_makes_the_capture_raise(cuda_device, monkeypatch):
     """A host read put inside the step: the first frame (eager) runs, the
     capture raises, and so does the next call; nothing falls back to the
