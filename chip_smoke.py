@@ -62,17 +62,23 @@ Phases, each of which raises (non-zero exit) on failure:
    the descriptors once per frame, no window gather, the matcher once per tracked frame and per
    keyframe insert, the Cholesky once per tracked frame), no frame may be
    lost, the pan error against ground truth must stay under 3e-3 rad and
-   windowed BA must have run. (c) The same sequence with frames 140-146
+   windowed BA must have run; printed twice, with the same gates: the
+   first pass with its graphs' captures, then a second pass of the
+   sequence on the same ``PTZSlam`` (every program captured: the steady
+   state), whose poses must equal the first's. (c) The same sequence with frames 140-146
    (after the frame-120 cadence insert) blacked out, once per
    ``reloc_mode`` ("map", "keyframe"): tracking must go lost in the
    blackout, relocalize, track every frame from 15 frames after it with a
    pan error under 3e-3 rad, and the counters must again equal the call
    sites' counts (the matcher also once per relocalization frame). (d) The
    4c sequence again, in each reloc mode, through the graph route (the
-   default: each tracked re-detect frame the replay of one CUDA graph) and
-   the eager route (``PTZSlam(..., _graphs=False)``) in turns, over 40
-   tracked frames, the insert frame (120, ten times from the same state)
-   and the relocalization frames; and the same 40 tracked frames in KLT
+   default: each frame kind the replay of its CUDA graphs) and the eager
+   route (``PTZSlam(..., _graphs=False)``) in turns, over 40 tracked
+   frames, the insert frame (120, ten times from the same state) and the
+   relocalization frames, each window's first frame run once before it
+   (so that its programs are captured before the clock), with each
+   program's capture + instantiation time and pool growth as set-up; and
+   the same 40 tracked frames in KLT
    mode and in features mode (``run_segment`` on the re-detect frontend's
    features, staged before the clock as ``--offline`` stages them), each
    through the graph route (each tracked frame a replay) and the eager
@@ -93,12 +99,15 @@ Phases, each of which raises (non-zero exit) on failure:
    scipy's fp64 solver. (g) 4b's sequence to frame 96, ``save_pytree``,
    ``load_pytree`` into a fresh state, frames 97 on: flags and poses
    bitwise those of the uninterrupted 4b run. (h) The graph route against
-   the eager route over 4d's tracked frames 40-79, one frame a call, in
-   re-detect, KLT and features mode, in map mode, in keyframe mode and
-   (re-detect, KLT) with a mask of three boxes: every FrameInfo, the final
-   state and the KLT carry bitwise equal, the same launches, and exactly
-   one wait of the host for the card a frame (sync debug mode) on the
-   graph route.
+   the eager route over frames 100-160 of the 4c sequence (the insert at
+   120, the blackout, the relocalization), one frame a call, in re-detect,
+   KLT and features mode, in map mode, in keyframe mode and (re-detect,
+   KLT) with a mask of three boxes, the graph route twice on one
+   ``PTZSlam`` (the second pass from its kept state, every program
+   captured): every FrameInfo, the final state and the KLT carry bitwise
+   equal, the same launches, which are the call sites', and on the second
+   pass the host's waits for the card a frame (sync debug mode): 2 on an
+   insert frame, 1 on a lost and on a tracked frame.
 
 5. the CLI (``ptzjax_torch.run``) on the card, each run with the counters
    set to 0 just before it and read just after: (a) ``run.main`` in-process
@@ -452,15 +461,17 @@ def kernel_phase(img: torch.Tensor, card: str) -> list[dict]:
     ]
 
 
-def run_slice(imgs: torch.Tensor, cams, intr, reloc_mode: str = "map"):
+def run_slice(imgs: torch.Tensor, cams, intr, reloc_mode: str = "map", slam=None):
     """``PTZSlam.init`` on frame 0, then ``run_segment_pixels`` on the rest,
     at the product defaults (descriptor_f_ref AUTO), on the device of
-    ``imgs``."""
+    ``imgs``; through ``slam`` where it is given (a later pass on it
+    replays the graphs an earlier one captured)."""
     from ptzjax_torch.config import SLAMConfig
     from ptzjax_torch.frontend import extract_features
     from ptzjax_torch.slam import PTZSlam
 
-    slam = PTZSlam(SLAMConfig(reloc_mode=reloc_mode), intr, device=imgs.device)
+    if slam is None:
+        slam = PTZSlam(SLAMConfig(reloc_mode=reloc_mode), intr, device=imgs.device)
     state = slam.init(*extract_features(imgs[0], slam.cfg), cams[0])
     return slam.run_segment_pixels(state, imgs[1:])
 
@@ -1055,18 +1066,35 @@ INSERT_FRAME = 120    # the cadence insert (and its windowed BA) of 4b's sequenc
 INSERT_REPEATS = 10   # 4d runs it this many times from the same state
 
 
+def captures(slam) -> list:
+    """(graph kind, program, capture + instantiation s, pool growth bytes)
+    of each program a ``PTZSlam``'s graph route has captured."""
+    if slam._graphs is None:
+        return []
+    return [
+        (g.kind, name, p.capture_s, p.pool_bytes)
+        for g in slam._graphs.graphs.values() for name, p in g.programs.items() if p.capture_s is not None
+    ]
+
+
+def describe_captures(caps) -> str:
+    return ", ".join(f"{kind} {name} {1e3 * s:.1f} ms +{b / 2**20:.0f} MiB" for kind, name, s, b in caps)
+
+
 def frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
     """4d: wall and device time and kernels per frame kind, in each reloc
-    mode, through the graph route (the default): 40 tracked frames
-    (40-79), the insert frame (INSERT_FRAME, run INSERT_REPEATS times from
-    the state before it: a replay, then the insert and the windowed BA) and
-    the relocalization frames (141-147) of the 4c sequence; and the tracked
-    frames through the eager route (``_graphs=False``), the two routes'
-    wall passes in turns. (The insert and reloc frames run eagerly on both
-    routes but for the insert frame's replay.) Frames run one per call with
-    a sync after each; one pass times their wall clock, a second pass runs
-    the profiler over them (its per-launch cost would swell a wall time).
-    The graph route's capture and instantiation is set-up, printed apart."""
+    mode, through the graph route (the default) and the eager route
+    (``_graphs=False``), the two routes' wall passes in turns: 40 tracked
+    frames (40-79), the insert frame (INSERT_FRAME, run INSERT_REPEATS
+    times from the state before it: the tracked replay, then the insert and
+    the windowed BA) and the relocalization frames (141-147) of the 4c
+    sequence. Each window's first frame runs once from the window's start
+    state before the timed frames, which start from it again, so that the
+    graph route's programs are captured before the clock. Frames run one
+    per call with a sync after each; one pass times their wall clock, a
+    second pass runs the profiler over them (its per-launch cost would
+    swell a wall time). The graph route's captures (capture +
+    instantiation, pool growth) are set-up, printed apart."""
     from ptzjax_torch.config import SLAMConfig
     from ptzjax_torch.frontend import extract_features
     from ptzjax_torch.slam import PTZSlam
@@ -1084,8 +1112,9 @@ def frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
         slam = PTZSlam(SLAMConfig(reloc_mode=mode), intr, _graphs=graphs)   # the card, by default
         state = slam.init(*extract_features(dark[0], slam.cfg), cams[0])
         at, out = 1, {}
-        for kind, frames, event in windows if graphs else windows[:1]:
+        for kind, frames, event in windows:
             state, _ = slam.run_segment_pixels(state, dark[at:frames.start])
+            slam.run_segment_pixels(state, dark[frames.start:frames.start + 1])   # the warm-up
             torch.cuda.synchronize()
             at = frames.stop
             reps = INSERT_REPEATS if kind == "insert" else 1
@@ -1113,7 +1142,7 @@ def frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
                 sorted(by_name.items(), key=lambda kv: -kv[1])[:4],
             )
         if graphs and not traced:
-            out["capture_s"] = [g.capture_s for g in slam._graphs.graphs.values()]
+            out["captures"] = captures(slam)
         return out
 
     for mode in ("map", "keyframe"):
@@ -1124,13 +1153,13 @@ def frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
             traced[graphs] = repeat_until_same(
                 lambda: run(mode, graphs, True), lambda r: tuple(v[1] for v in r.values())
             )
-        print(
-            f"4d reloc_mode={mode}, graph route: capture + instantiation "
-            + ", ".join(f"{1e3 * c:.1f} ms" for w in walls[True] for c in w["capture_s"])
-            + f" (one graph a PTZSlam, set-up) [{card}]"
-        )
+        for w in walls[True]:
+            print(
+                f"4d reloc_mode={mode}, graph route: captures (capture + instantiation, pool growth) "
+                + describe_captures(w["captures"]) + f" (once a PTZSlam and program, set-up) [{card}]"
+            )
         for kind, frames, _ in windows:
-            for graphs in (True, False) if kind == "tracked" else (True,):
+            for graphs in (True, False):
                 device_ms, per_frame, top = traced[graphs][kind]
                 wall = float(np.median([w[kind] for w in walls[graphs]]))
                 nf = len(frames) * (INSERT_REPEATS if kind == "insert" else 1)
@@ -1200,10 +1229,6 @@ class Loop:
         self.at = stop
         return infos
 
-    def captures(self) -> list:
-        """Each graph's capture + instantiation seconds."""
-        return [g.capture_s for g in self.slam._graphs.graphs.values()]
-
 
 def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
@@ -1216,50 +1241,100 @@ def _same(a, b) -> bool:
     return len(la) == len(lb) and all(torch.equal(_bits(x), _bits(y)) for x, y in zip(la, lb))
 
 
+WINDOW = range(100, 161)   # 4h: the cadence insert at 120, the blackout 140-146, the recovery
+
+
+def window_counts(infos: list, kind: str, masked: bool) -> dict:
+    """What the call sites launch over one-frame calls' ``infos``: A and F
+    a frame from pixels, E a KLT frame, C a tracked frame, an insert and a
+    relocalization frame, D a tracked frame, B never; and A's masked
+    launches."""
+    event = np.array([int(i.event[0]) for i in infos])
+    inserts = sum(int(i.keyframe[0]) for i in infos)
+    frames, tracked, pixels = len(event), int((event == 0).sum()), kind != "features"
+    return {
+        "harris_nms": frames * pixels, "gather_windows": 0,
+        "match_scores": tracked + inserts + int((event == 1).sum()), "cholesky": tracked,
+        "lk_track": frames * (kind == "KLT"), "describe_keypoints": frames * pixels,
+        "masked": frames * masked,
+    }
+
+
 def graph_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
     """4h: the graph route against the eager route (``_graphs=False``) over
-    the tracked frames 40-79, one frame a call, in re-detect, KLT and
-    features mode (``run_segment`` on ``staged_features``), in map mode, in
-    keyframe mode and (re-detect, KLT) with a mask of three boxes on every
-    frame: every FrameInfo, the final state and the KLT carry bitwise
-    equal, the same launches, and the host's waits for the card (sync debug
-    mode) on each frame: exactly one on the graph route, at its flag
-    read."""
+    WINDOW of the 4c sequence (the cadence insert at 120, the blackout
+    140-146 and the recovery), one frame a call after frames 1-99 in one,
+    in re-detect, KLT and features mode (``run_segment`` on
+    ``staged_features``), in map mode, in keyframe mode and (re-detect,
+    KLT) with a mask of three boxes on every frame. The graph route runs
+    the window twice on one ``PTZSlam``, the second time from its kept
+    state at 99 with every program captured: on both passes every
+    FrameInfo, the final state and the KLT carry bitwise equal to the
+    eager route's and the same launches, which are the call sites'; on the
+    second pass, from frame 101, the host's waits for the card (sync debug
+    mode) a frame: 2 on an insert frame, 1 on a lost frame, 1 on a tracked
+    frame, all in ``_graphs.py``."""
+    from ptzjax_torch.kernels import harris_nms
+
+    dark = imgs[:WINDOW.stop].clone()
+    dark[BLACKOUT.start:BLACKOUT.stop] = 0.0
     boxes = torch.ones(imgs.shape[1:], dtype=torch.bool, device=imgs.device)
     for y0, y1, x0, x1 in ((100, 300, 200, 400), (450, 700, 900, 1200), (0, 120, 1100, 1280)):
         boxes[y0:y1, x0:x1] = False
-    feats = staged_features(imgs, cams, TRACKED.stop)
+    feats = staged_features(dark, cams, WINDOW.stop)
     cases = [(kind, mode, False) for kind in ("re-detect", "KLT", "features") for mode in ("map", "keyframe")]
     cases += [("re-detect", "map", True), ("KLT", "map", True)]
     for kind, mode, masked in cases:
-        masks = boxes.expand(imgs.shape) if masked else None
-        runs = {}
+        masks = boxes.expand(dark.shape) if masked else None
+        passes = {True: [], False: []}
         for graphs in (True, False):
-            loop = Loop(kind, imgs, cams, intr, mode=mode, graphs=graphs, masks=masks, feats=feats)
-            loop.run(TRACKED.start)
-            reset_counts()
-            infos, waits = [], []
-            for f in TRACKED:
-                waits.append(sync_sites(lambda: infos.append(loop.run(f + 1))))
-            runs[graphs] = loop.state, infos, waits, read_counts(), loop.carry[1:], loop.captures() if graphs else None
-        (s_g, i_g, w_g, n_g, c_g, capture), (s_e, i_e, w_e, n_e, c_e, _) = runs[True], runs[False]
+            loop = Loop(kind, dark, cams, intr, mode=mode, graphs=graphs, masks=masks, feats=feats)
+            loop.run(WINDOW.start)
+            kept = loop.state, loop.carry
+            for _ in range(2 if graphs else 1):
+                loop.state, loop.carry, loop.at = *kept, WINDOW.start
+                reset_counts()
+                infos, waits = [], []
+                for f in WINDOW:
+                    waits.append(sync_sites(lambda: infos.append(loop.run(f + 1))))
+                counts = {**read_counts(), "masked": harris_nms.masked_launches}
+                passes[graphs].append((loop.state, infos, waits, counts, loop.carry[1:]))
+            if graphs:
+                capture = captures(loop.slam)
+        (s_e, i_e, w_e, n_e, c_e), = passes[False]
         what = f"4h {kind} reloc_mode={mode} masked={masked}"
-        differ = [f for f, a, b in zip(TRACKED, i_g, i_e) if not _same(a, b)]
-        check(not differ, f"{what}: frames {differ} differ between the graph and eager routes")
-        check(_same(s_g, s_e), f"{what}: the final states differ")
-        check(all(torch.equal(a, b) for a, b in zip(c_g, c_e)), f"{what}: the KLT carries differ")
-        check(n_g == n_e, f"{what}: launches {n_g} (graph) and {n_e} (eager)")
-        check(not any(bool(i.lost[0]) or bool(i.keyframe[0]) for i in i_e), f"{what}: a frame lost or inserted")
+        want = window_counts(i_e, kind, masked)
+        check(n_e == want, f"{what}: eager launches {n_e}, call sites give {want}")
+        for k, (s_g, i_g, w_g, n_g, c_g) in enumerate(passes[True]):
+            differ = [f for f, a, b in zip(WINDOW, i_g, i_e) if not _same(a, b)]
+            check(not differ, f"{what}, pass {k + 1}: frames {differ} differ between the graph and eager routes")
+            check(_same(s_g, s_e), f"{what}, pass {k + 1}: the final states differ")
+            check(all(torch.equal(a, b) for a, b in zip(c_g, c_e)), f"{what}, pass {k + 1}: the KLT carries differ")
+            check(n_g == n_e, f"{what}, pass {k + 1}: launches {n_g} (graph) and {n_e} (eager)")
+        kinds = [int(i.event[0]) + 2 * int(i.keyframe[0]) for i in i_e]
         check(
-            all(len(w) == 1 and "_graphs.py" in w[0] for w in w_g),
-            f"{what}: graph-route waits per frame {[w for w in w_g if len(w) != 1][:3]}",
+            kinds[INSERT_FRAME - WINDOW.start] == 2 and kinds.count(1) >= 2
+            and any(bool(i.reloc_success[0]) for i in i_e),
+            f"{what}: frame kinds {kinds} (want the insert at {INSERT_FRAME}, lost frames and a recovery)",
+        )
+        w_g = passes[True][1][2]
+        by_kind: dict = {}
+        for f, e, w in zip(WINDOW, kinds, w_g):
+            if f > WINDOW.start:   # the rewound call reads the kept state's lost flag
+                by_kind.setdefault({0: "tracked", 1: "lost", 2: "insert"}[e], set()).add(len(w))
+        check(
+            all(len(w) == (2 if e == 2 else 1) and all("_graphs.py" in x for x in w)
+                for f, e, w in zip(WINDOW, kinds, w_g) if f > WINDOW.start),
+            f"{what}: graph-route waits a frame {[(f, w) for f, w in zip(WINDOW, w_g)][1:][:4]}",
         )
         print(
-            f"4h graph route vs eager, {kind}, tracked frames {TRACKED.start}-{TRACKED.stop - 1}, reloc_mode={mode}, "
-            f"mask {'3 boxes' if masked else 'none'}: FrameInfos, final state{' and carry' if kind == 'KLT' else ''} "
-            f"bitwise equal; launches {n_g} both; host waits a frame graph {sorted({len(w) for w in w_g})} at "
-            f"{sorted(set(sum(w_g, [])))}, eager {sorted({len(w) for w in w_e})} at {sorted(set(sum(w_e, [])))}; "
-            f"capture + instantiation {', '.join(f'{1e3 * c:.1f} ms' for c in capture)} [{card}]"
+            f"4h graph route vs eager, {kind}, frames {WINDOW.start}-{WINDOW.stop - 1} (insert at {INSERT_FRAME}, "
+            f"blackout {BLACKOUT.start}-{BLACKOUT.stop - 1}; kinds: {kinds.count(0)} tracked, {kinds.count(2)} insert, "
+            f"{kinds.count(1)} lost), reloc_mode={mode}, mask {'3 boxes' if masked else 'none'}: FrameInfos, final "
+            f"state{' and carry' if kind == 'KLT' else ''} bitwise equal on both graph passes; launches {n_e}, the "
+            f"call sites'; host waits a frame on the second graph pass {by_kind} at "
+            f"{sorted(set(sum(w_g, [])))}, eager {sorted({len(w) for w in w_e})}; captures "
+            + describe_captures(capture) + f" [{card}]"
         )
 
 
@@ -1346,14 +1421,14 @@ def mode_frame_phase(imgs: torch.Tensor, cams, intr, card: str, kind: str) -> di
                 walls.append(time.perf_counter() - t0)
                 events.append(int(info.event[0]) + 2 * int(info.keyframe[0]))
         check(all(e == 0 for e in events), f"4d {kind}: frames {TRACKED} ran events {events}")
-        return float(np.median(walls)) * 1e3, prof, read_counts(), loop.captures() if graphs else []
+        return float(np.median(walls)) * 1e3, prof, read_counts(), captures(loop.slam) if graphs else []
 
     walls: dict = {True: [], False: []}
-    counts, captures = {}, []
+    counts, caps = {}, []
     for graphs in (True, False, False, True):
         wall, _, c, capture = run(graphs, False)
         walls[graphs].append(wall)
-        captures += capture
+        caps += capture
         counts.setdefault(graphs, []).append(c)
     each = nf if kind == "KLT" else 0
     want = {
@@ -1363,7 +1438,7 @@ def mode_frame_phase(imgs: torch.Tensor, cams, intr, card: str, kind: str) -> di
     for graphs, cs in counts.items():
         check(all(c == want for c in cs), f"4d {kind} graphs={graphs}: launches {cs}, call sites give {want}")
     print(
-        f"4d {kind}, graph route: capture + instantiation " + ", ".join(f"{1e3 * c:.1f} ms" for c in captures)
+        f"4d {kind}, graph route: captures (capture + instantiation, pool growth) " + describe_captures(caps)
         + f" (one graph a PTZSlam, set-up) [{card}]"
     )
     for graphs in (True, False):
@@ -1902,38 +1977,51 @@ def main() -> int:
             f"max |d f| {dpose[:, 2].max()} px"
         )
 
-    # 4b. the main path, counted: each kernel as often as its call sites say
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, infos = run_slice(imgs, cams, intr)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts()
-    want = expected_counts(infos)
-    print(f"launches over the {frames}-frame main path: {launches}")
-    check(launches == want, f"launches {launches}, call sites give {want}")
-    # kernel E runs in KLT mode only (4e); B on no main path
-    check(all(v > 0 for k, v in launches.items() if k not in ("lk_track", "gather_windows")), f"a kernel never launched: {launches}")
+    # 4b. the main path, counted: each kernel as often as its call sites say;
+    # then a second pass of the sequence on the same PTZSlam (every program
+    # captured by the first: set-up apart from the steady state)
+    from ptzjax_torch.config import SLAMConfig
+    from ptzjax_torch.slam import PTZSlam
 
-    pose = infos.pose.cpu().numpy()
-    lost = infos.lost.cpu().numpy()
-    event = infos.event.cpu().numpy()
-    inserts = int(infos.keyframe.sum())
-    check(pose.shape == (frames - 1, 3) and np.isfinite(pose).all(), "poses not finite / wrong shape")
-    pan_mae = float(np.abs(pose[:, 0] - cams[1:, 0]).mean())
-    tilt_mae = float(np.abs(pose[:, 1] - cams[1:, 1]).mean())
-    f_mae = float(np.abs(pose[:, 2] - cams[1:, 2]).mean())
-    print(
-        f"slice: {frames} frames 720p at SLAMConfig defaults: lost {int(lost.sum())}, "
-        f"keyframe inserts {inserts} (each with windowed BA), relocalizations "
-        f"{int((event == 1).sum())}, kf stored {int(state.kf.count)}, "
-        f"pan MAE {pan_mae} rad, tilt MAE {tilt_mae} rad, f MAE {f_mae} px"
-    )
-    print(f"slice wall clock: {wall:.3f} s, {frames / wall:.2f} frames/s [{card}]")
-    check(not lost.any(), f"lost frames at {np.nonzero(lost)[0]}")
-    check(pan_mae < 3e-3, f"pan MAE {pan_mae} >= 3e-3")
-    check(inserts >= 1 and int(state.kf.count) >= 2, "no keyframe insert ran windowed BA")
+    slam_4b = PTZSlam(SLAMConfig(), intr, device=dev)
+    for label in ("with its captures", "second pass on the same PTZSlam"):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state_4b, infos_4b = run_slice(imgs, cams, intr, slam=slam_4b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts_4b = read_counts()
+        if label == "with its captures":
+            state, infos, launches = state_4b, infos_4b, counts_4b
+        want = expected_counts(infos_4b)
+        print(f"launches over the {frames}-frame main path ({label}): {counts_4b}")
+        check(counts_4b == want, f"{label}: launches {counts_4b}, call sites give {want}")
+        # kernel E runs in KLT mode only (4e); B on no main path
+        check(
+            all(v > 0 for k, v in counts_4b.items() if k not in ("lk_track", "gather_windows")),
+            f"{label}: a kernel never launched: {counts_4b}",
+        )
+        pose = infos_4b.pose.cpu().numpy()
+        lost = infos_4b.lost.cpu().numpy()
+        event = infos_4b.event.cpu().numpy()
+        inserts = int(infos_4b.keyframe.sum())
+        check(pose.shape == (frames - 1, 3) and np.isfinite(pose).all(), f"{label}: poses not finite / wrong shape")
+        pan_mae = float(np.abs(pose[:, 0] - cams[1:, 0]).mean())
+        tilt_mae = float(np.abs(pose[:, 1] - cams[1:, 1]).mean())
+        f_mae = float(np.abs(pose[:, 2] - cams[1:, 2]).mean())
+        print(
+            f"slice ({label}): {frames} frames 720p at SLAMConfig defaults: lost {int(lost.sum())}, "
+            f"keyframe inserts {inserts} (each with windowed BA), relocalizations "
+            f"{int((event == 1).sum())}, kf stored {int(state_4b.kf.count)}, "
+            f"pan MAE {pan_mae} rad, tilt MAE {tilt_mae} rad, f MAE {f_mae} px"
+        )
+        print(f"slice wall clock ({label}): {wall:.3f} s, {frames / wall:.2f} frames/s [{card}]")
+        check(not lost.any(), f"{label}: lost frames at {np.nonzero(lost)[0]}")
+        check(pan_mae < 3e-3, f"{label}: pan MAE {pan_mae} >= 3e-3")
+        check(inserts >= 1 and int(state_4b.kf.count) >= 2, f"{label}: no keyframe insert ran windowed BA")
+    check(torch.equal(infos_4b.pose, infos.pose), "4b: the second pass's poses differ from the first's")
+    print(f"4b captures (capture + instantiation, pool growth): {describe_captures(captures(slam_4b))} [{card}]")
 
     # 4c. blackout, relocalization and recovery, in both reloc modes
     by_path = {"main": launches}

@@ -7,7 +7,8 @@ Building a small tensor from Python numbers on the card (``torch.tensor(...,
 device=...)``) copies pageable host memory, and that copy makes the host
 wait for everything queued on the stream: a device sync in the middle of the
 per-frame loop. Constants the loop needs every frame are therefore made once
-per (values, device) and reused; callers only read them.
+per (values, device) and reused; callers only read them. They are kept
+for the life of the process: a captured CUDA graph reads them by address.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ def resolve(device=None, like=None) -> torch.device:
     return torch.device("cuda")
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def const(values: tuple, device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """A read-only (len(values),) tensor on ``device``."""
     return torch.tensor(values, dtype=dtype, device=device)

@@ -1,39 +1,46 @@
-"""The tracking loops on the card as CUDA graphs: each tracked frame of the
+"""The tracking loops on the card as CUDA graphs: every frame of the
 re-detect loop (``run_segment_pixels``), the KLT loop
 (``run_segment_pixels_klt``) and the features loop (``run_segment`` and
-``step``) is the replay of one graph that holds the whole frame -- the
-frontend (re-detect: kernels A and F, the top-k; KLT: the pyramids, kernel
-E, the refill detection with A and the descriptors with F; features: none),
-the track step (kernels C and D, the EKF) and the keyframe predicates --
-and one host read of its (lost, insert) flags.
+``step``) is the replay of graphs over static buffers, a device program for
+each frame kind, each followed by one host read of its flags.
 
 This is how the port carries over the reference's single device program a
 frame (``ptzjax/slam.py``: ``jax.jit`` of a ``lax.scan`` over
-``_frame_step``, whose ``lax.cond``s pick track or relocalize and insert or
-not). A graph cannot branch, so the frame splits where the reference's
-conds are: the tracked step up to its insert predicate
-(``slam._track_step``) is captured; an insert (``slam._keyframe``: the
-insert and the windowed BA) and a lost frame (``slam._relocalize``) run
-eagerly after it, as the eager route runs them. Both are rare: 2 inserts
-in the 192 frames of the bench sequence.
+``_frame_step``, whose ``lax.cond``s pick track or relocalize, insert or
+not, and windowed BA or not). A graph cannot branch, so the frame splits
+where the reference's conds are, into the programs of a ``TrackGraph``:
+
+- "track": the frontend (re-detect: kernels A and F, the top-k; KLT: the
+  pyramids, kernel E, the refill detection with A and the descriptors with
+  F; features: none), the track step (``slam._track_step``: kernels C and
+  D, the EKF) and its keyframe predicates, then one read of its (lost,
+  insert, BA) flags. The BA flag (``slam._ba_follows``) is known before the
+  insert, so an insert frame reads it with the others.
+- "insert" and "insert+ba": the insert branch (``slam._insert_step``: C,
+  the keyframe and ray stores, and the windowed BA for "insert+ba"), on the
+  frame's features copied into buffers of its own; after the BA, one read
+  of the lost flag (its drift watchdog). An insert frame waits twice.
+- "lost": the frontend and the lost branch (``slam._relocalize_step``: C
+  and the pose solve, then the re-seed and the stay-lost step selected on
+  the device), then one read of the success flag.
 
 A ``TrackGraph`` owns static buffers: the frame's inputs (the image and the
 mask where the frames have one, or the features), the carry of KLT mode
-(the previous image and keypoint table) and the whole ``SlamState``. A call
-copies the caller's state (and carry) in; each tracked frame copies its
-inputs in and replays. The graph's tail copies the fields the step changed
-back into the state buffers, which the next replay reads, and in KLT mode
-the frame's image and table into the carry; the keyframe store, which
-tracking only reads, is not copied. Eager frames read the buffers and copy
-their results in. The call returns fresh tensors: the caller's state and
-carry are never written, so an earlier state replayed later (the forest's
-rewind) gives the same result.
+(the previous image and keypoint table), the whole ``SlamState`` and the
+insert's features. A call copies the caller's state (and carry) in; each
+frame copies its inputs in and replays. A program's tail copies the fields
+its branch changed back into the state buffers, which the next program
+reads, and in KLT mode the frame's image and table into the carry (the
+tracked and the lost frame both move it on); the keyframe store, which
+tracking only reads, is copied back by the insert only. The call returns
+fresh tensors: the caller's state and carry are never written, so an
+earlier state replayed later (the forest's rewind) gives the same result.
 
-The first tracked frame of a graph runs eagerly on the graph's own stream:
-a real frame of the loop, its launches counted. It creates, from the
-ordinary allocator and before the capture, what the frame's kernels keep
-between calls: the cuBLAS and cuSOLVER handles, the kernels' shared-memory
-attributes and D's cluster query, F's spatial table and the wrappers'
+A program's first use runs eagerly on a stream of its own: a real frame of
+the loop, its launches counted. It creates, from the ordinary allocator and
+before the capture, what the frame's kernels keep between calls: the cuBLAS
+and cuSOLVER handles, the kernels' shared-memory attributes and D's cluster
+query, F's spatial table, ``_device.const``'s constants and the wrappers'
 workspaces, which are keyed by (device, stream). The capture launches
 nothing, so the launch counters' rise during it is undone and added again
 at every replay (``captured_rise``, ``credit``).
@@ -43,6 +50,7 @@ No fallback: a capture, instantiation or replay error raises.
 
 from __future__ import annotations
 
+import functools
 import time
 
 import torch
@@ -125,9 +133,66 @@ def _check_fit(dst: torch.Tensor, src: torch.Tensor, what: str, dtype: bool = Tr
         )
 
 
+class Program:
+    """One device program of a ``TrackGraph``: ``fn(owner)`` (it reads the
+    owner's buffers and writes its results back into them) runs eagerly on
+    a stream of its own at its first use, which is then captured as a CUDA
+    graph; every later use replays the graph and credits its launches.
+    Returns what ``fn`` returns (from a replay: the graph's outputs, valid
+    until the next replay). A program holds no reference to its owner, so
+    a ``TrackGraph`` and its graphs' pools are freed when the last
+    reference to it goes, not at some later garbage collection."""
+
+    def __init__(self, fn, device):
+        self.fn, self.device = fn, device
+        self.replay = None      # the graph's replay, once captured
+        self.capture_s = None   # capture + instantiation, seconds
+        self.pool_bytes = None  # memory_reserved's growth over the capture
+        self._out = None        # the graph's outputs
+        self._rise: tuple[int, ...] = ()
+        self._keep = ()         # the workspaces the graph's kernels use
+
+    def __call__(self, owner):
+        if self.replay is None:
+            return self.first_use(owner)
+        self.replay()
+        credit(self._rise)
+        return self._out
+
+    def first_use(self, owner):
+        """``fn`` eagerly on the program's own stream, then the capture."""
+        cur = torch.cuda.current_stream(self.device)
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream):
+            out = self.fn(owner)
+        cur.wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            with torch.cuda.graph(graph, stream=stream):
+                self._out = self.fn(owner)
+
+        # the capture empties the allocator's cache first: so does the
+        # reading before it, so that the growth is the graph's pool
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        self._rise = captured_rise(capture)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        # a later warm-up on a stream of the same key may replace a
+        # workspace; the graph keeps the ones it was captured with
+        self._keep = (dict(harris_nms._workspace), dict(match._workspace))
+        self.replay = graph.replay
+        return out
+
+
 class TrackGraph:
-    """One tracked frame as a CUDA graph over static buffers, for one
-    frontend (``kind``), input shape, mask presence and config.
+    """A frame's device programs (``Program``: "track", "insert",
+    "insert+ba", "lost") over static buffers, for one frontend (``kind``),
+    input shape, mask presence and config.
 
     ``kind`` "redetect" and "klt" take frames: ``shape`` is the image's (H,
     W), and ``masked`` says whether the frames have masks; "klt" also keeps
@@ -161,11 +226,13 @@ class TrackGraph:
         self.carry = ()
         if kind == "klt":
             self.carry = (buf(shape), buf((carry_rows, 2)), buf((carry_rows,), torch.bool))
-        self._replay = None     # the graph's replay, once captured
-        self._out = None        # the graph's outputs: (info, flags, (xy, desc, valid))
-        self._rise: tuple[int, ...] = ()
-        self._keep = ()         # the workspaces the graph's kernels use
-        self.capture_s = None   # capture + instantiation, seconds
+        self.feats = None   # the insert's (xy, desc, valid), made at the first insert
+        self.programs = {
+            "track": Program(TrackGraph._tracked, device),
+            "insert": Program(functools.partial(TrackGraph._insert, ba=False), device),
+            "insert+ba": Program(functools.partial(TrackGraph._insert, ba=True), device),
+            "lost": Program(TrackGraph._lost, device),
+        }
 
     def load(self, state: slam.SlamState, carry=(), then=()) -> None:
         """Copy ``state`` (and in KLT mode the carry: previous image, xy,
@@ -191,13 +258,12 @@ class TrackGraph:
         n = len(self._bufs)
         return _rebuild(self.state, iter(leaves[:n])), leaves[n:]
 
-    def _frontend(self, inputs):
-        """The frame's (xy, desc, valid) from its inputs (the input buffers
-        in the graph, the frame's own tensors on a lost frame), and the
+    def _frontend(self):
+        """The frame's (xy, desc, valid) from the input buffers, and the
         (carry buffer, value) pairs that carry the frame on."""
         if self.kind == "features":
-            return tuple(inputs), ()
-        img, mask = inputs
+            return self.inputs, ()
+        img, mask = self.inputs
         focal = slam._safe_focal(self.state, self.cfg)
         if self.kind == "redetect":
             return extract_features(img, self.cfg, mask=mask, focal=focal), ()
@@ -205,64 +271,80 @@ class TrackGraph:
         xy, desc, valid, _ = track_features(pimg, img, pxy, pvalid, self.cfg, mask=mask, focal=focal)
         return (xy, desc, valid), tuple(zip(self.carry, (img, xy, valid)))
 
+    def _write_back(self, state: slam.SlamState, tail=()) -> None:
+        """The tail of a program: the fields of ``state`` that are not their
+        buffers already (those its branch changed) and the pairs ``tail``
+        copied into their buffers."""
+        _copy([*((d, s) for d, s in zip(self._bufs, tree_flatten(state)[0]) if s is not d), *tail])
+
     def _step(self):
-        """What the graph holds: the frontend on the input buffers, the
-        track step and keyframe predicates on the state buffers, then the
-        tail that copies the changed fields back (and in KLT mode the
-        frame's image and table into the carry)."""
-        feats, tail = self._frontend(self.inputs)
+        """The tracked frame: the frontend on the input buffers, the track
+        step and keyframe predicates on the state buffers, then the tail
+        that copies the changed fields back (and in KLT mode the frame's
+        image and table into the carry). Returns (info, (lost, insert)
+        flags, (xy, desc, valid))."""
+        feats, tail = self._frontend()
         s2, info, flags = slam._track_step(self.state, *feats, cfg=self.cfg, intr=self.intr)
-        _copy([*((d, s) for d, s in zip(self._bufs, tree_flatten(s2)[0]) if s is not d), *tail])
+        self._write_back(s2, tail)
         return info, flags, feats
 
-    def track(self, *inputs):
-        """One tracked frame from its inputs (image and mask, or xy, desc
-        and valid): (info, flags, (xy, desc, valid)), valid until the next
-        call; the state (and carry) buffers hold the tracked frame's."""
+    def _tracked(self):
+        """The "track" program: ``_step`` with the BA predicate of an insert
+        stacked onto its flags: (info, (lost, insert, BA) flags, feats)."""
+        info, flags, feats = self._step()
+        return info, torch.cat([flags, slam._ba_follows(self.state, self.cfg).view(1)]), feats
+
+    def _insert(self, ba: bool) -> None:
+        """The "insert" / "insert+ba" program: the insert branch on the
+        insert's feature buffers and the state buffers, then the tail, which
+        copies back what it changed: the keyframe and ray stores, the EKF's
+        ``cam``, ``cov`` and ``ray_ids``, and ``lost``."""
+        s = slam._insert_step(self.state, *self.feats, cfg=self.cfg, intr=self.intr, ba=ba)
+        self._write_back(s)
+
+    def _lost(self):
+        """The "lost" program: the frontend on the input buffers, the lost
+        branch on the state buffers (both of its outcomes selected on the
+        device), then the tail (and in KLT mode the carry's). Returns (info,
+        success flag)."""
+        feats, tail = self._frontend()
+        s, info, success = slam._relocalize_step(self.state, *feats, cfg=self.cfg, intr=self.intr)
+        self._write_back(s, tail)
+        return info, success
+
+    def _fill(self, inputs) -> None:
         for dst, src in zip(self.inputs, inputs):
             if dst is not None:
                 dst.copy_(torch.as_tensor(src))
-        if self._replay is None:
-            return self._first_frame()
-        self._replay()
-        credit(self._rise)
-        return self._out
+
+    def track(self, *inputs):
+        """One tracked frame from its inputs (image and mask, or xy, desc
+        and valid): (info, (lost, insert, BA) flags, (xy, desc, valid)),
+        valid until the next call; the state (and carry) buffers hold the
+        tracked frame's."""
+        self._fill(inputs)
+        return self.programs["track"](self)
+
+    def insert(self, feats, ba: bool) -> bool:
+        """The insert branch on the tracked frame's features ``feats``
+        (copied into the insert's buffers, one ``_foreach_copy_`` a dtype),
+        with the windowed BA where ``ba``. Returns the state's lost flag as
+        a host bool: read after the BA (its drift watchdog may set it),
+        False without one."""
+        if self.feats is None:
+            self.feats = [torch.empty_like(v) for v in feats]
+        _copy(zip(self.feats, feats))
+        self.programs["insert+ba" if ba else "insert"](self)
+        return bool(self.state.lost) if ba else False
 
     def lost_frame(self, *inputs):
-        """One frame while lost, eagerly on the buffers, as the eager route
-        runs it (``slam._frame_step(..., lost=True)``): the frontend, the
-        relocalization, then the state and the carry loaded. Returns (info,
-        the new lost flag as a host bool)."""
-        inputs = [None if v is None else torch.as_tensor(v, device=self.device) for v in inputs]
-        feats, tail = self._frontend(inputs)
-        s, info, lost = slam._frame_step(self.state, *feats, cfg=self.cfg, intr=self.intr, lost=True)
-        info = _clone(info)
-        self.load(s, then=tail)
-        return info, lost
-
-    def _first_frame(self):
-        """The graph's first frame, eagerly on its own stream, then the
-        capture."""
-        cur = torch.cuda.current_stream(self.device)
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(cur)
-        with torch.cuda.stream(stream):
-            out = self._step()
-        cur.wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-
-        def capture():
-            with torch.cuda.graph(graph, stream=stream):
-                self._out = self._step()
-
-        t0 = time.perf_counter()
-        self._rise = captured_rise(capture)
-        self.capture_s = time.perf_counter() - t0
-        # a later warm-up on a stream of the same key may replace a
-        # workspace; the graph keeps the ones it was captured with
-        self._keep = (dict(harris_nms._workspace), dict(match._workspace))
-        self._replay = graph.replay
-        return out
+        """One frame while lost, from its inputs: the frontend and the
+        relocalization; the state (and carry) buffers hold its result.
+        Returns (info, valid until the next call, and the new lost flag as
+        a host bool)."""
+        self._fill(inputs)
+        info, success = self.programs["lost"](self)
+        return info, not bool(success)
 
 
 class Runner:
@@ -270,8 +352,8 @@ class Runner:
     (``run_segment_pixels``, ``run_segment_pixels_klt``, ``run_segment``
     and ``step``): one ``TrackGraph`` per (kind, mask presence, image shape
     or K and D, config), kept for the life of the ``PTZSlam``. Each loop is
-    its eager counterpart in ``slam.py`` with each tracked frame replayed
-    from its graph: bitwise the same results."""
+    its eager counterpart in ``slam.py`` with every frame replayed from the
+    graph's programs: bitwise the same results."""
 
     def __init__(self, device):
         self.device = device
@@ -288,24 +370,25 @@ class Runner:
 
     def _loop(self, g: TrackGraph, frames, ok, lost: bool):
         """The frames (each a tuple of inputs) through ``g``: a skipped frame
-        passes the state and carry through, a lost one runs eagerly, a
-        tracked one is a replay and one read of its flags, then the insert
-        eagerly where the flags ask for it. Returns (infos, the last
-        frame's lost flag)."""
+        passes the state and carry through; a lost one replays the "lost"
+        program and reads its success flag; a tracked one replays "track"
+        and reads its flags, then, where they ask for an insert, replays
+        "insert+ba" (and reads the lost flag) or "insert". A program's first
+        use runs eagerly and captures it. Returns (infos, the last frame's
+        lost flag)."""
         infos = []
         for inputs, ok_i in zip(frames, ok):
             if not ok_i:
                 infos.append(_clone(slam._skip_info(g.state)))
             elif lost:
                 info, lost = g.lost_frame(*inputs)
-                infos.append(info)
+                infos.append(_clone(info))
             else:
                 info, flags, feats = g.track(*inputs)
                 infos.append(_clone(info))
-                lost, insert = flags.tolist()
+                lost, insert, ba = flags.tolist()
                 if insert:
-                    s, lost = slam._keyframe(g.state, *feats, cfg=g.cfg, intr=g.intr)
-                    g.load(s)
+                    lost = g.insert(feats, ba)
         return infos, lost
 
     def run_segment_pixels(self, state: slam.SlamState, imgs, masks, frame_ok, *, cfg, intr, lost: bool):

@@ -13,9 +13,10 @@ here the scan is a Python loop over frames and each ``lax.cond`` is a Python
 ``if`` on a flag read from the device (see ``_frame_step``). All other
 decisions stay on the device as selects. On the card the tracking loops
 (re-detect, KLT and features: ``run_segment_pixels``,
-``run_segment_pixels_klt``, ``run_segment`` and ``step``) replay each
-tracked frame, up to its insert flag (``_track_step``), as one CUDA graph
-(``_graphs.py``).
+``run_segment_pixels_klt``, ``run_segment`` and ``step``) replay every
+frame kind from CUDA graphs (``_graphs.py``): a tracked frame up to its
+insert flag (``_track_step``), an insert (``_insert_step``) and a lost
+frame (``_relocalize_step``).
 """
 
 from __future__ import annotations
@@ -93,7 +94,7 @@ class PTZSlam:
         self.device = _device.resolve(device)
         # On the card the tracking loops (run_segment_pixels,
         # run_segment_pixels_klt, run_segment, step and so process) replay
-        # each tracked frame as one CUDA graph (``_graphs.py``);
+        # every frame kind from CUDA graphs (``_graphs.py``);
         # ``_graphs=False`` asks for the eager route there, for the card's
         # parity checks and A/B timings.
         self._graphs = None
@@ -138,8 +139,8 @@ class PTZSlam:
         return self._returned(_bootstrap(state, xy, desc, valid, cfg=cfg, intr=self.intr), False)
 
     def step(self, state: SlamState, xy, desc, valid) -> tuple[SlamState, FrameInfo]:
-        """One frame from features. On the card a tracked frame is the
-        replay of one CUDA graph, as in ``run_segment``."""
+        """One frame from features. On the card each frame kind is the
+        replay of a CUDA graph, as in ``run_segment``."""
         lost = self._lost_of(state)
         if self._graphs is not None:
             state, info, lost = self._graphs.step(
@@ -165,9 +166,9 @@ class PTZSlam:
 
         On the card each tracked frame is the replay of one CUDA graph (the
         track step and keyframe predicates on the frame's features, copied
-        in) and one read of its (lost, insert) flags; insert and
-        relocalization frames run eagerly (``_graphs.Runner``). The results
-        are bitwise the eager route's.
+        in) and one read of its flags; an insert and a lost frame replay
+        graphs of their own (``_graphs.Runner``). The results are bitwise
+        the eager route's.
 
         Returns the final state and the FrameInfo fields stacked over T."""
         xy_seq, desc_seq, valid_seq = (
@@ -191,7 +192,7 @@ class PTZSlam:
 
         On the card each tracked frame is the replay of one CUDA graph
         (frontend, track step and keyframe predicates) and one read of its
-        (lost, insert) flags; insert and relocalization frames run eagerly
+        flags; an insert and a lost frame replay graphs of their own
         (``_graphs.Runner``). The results are bitwise the eager route's.
 
         Returns the final state and the FrameInfo fields stacked over T."""
@@ -221,9 +222,9 @@ class PTZSlam:
 
         On the card each tracked frame is the replay of one CUDA graph (the
         KLT frontend on the carry, the track step and keyframe predicates,
-        and the carry moved on) and one read of its (lost, insert) flags;
-        insert and relocalization frames run eagerly (``_graphs.Runner``).
-        The results are bitwise the eager route's.
+        and the carry moved on) and one read of its flags; an insert and a
+        lost frame replay graphs of their own (``_graphs.Runner``). The
+        results are bitwise the eager route's.
 
         Returns (state, infos stacked over T, last_xy, last_valid): the
         table of the last real frame, to seed the next chunk."""
@@ -468,41 +469,47 @@ def _insert_keyframe(state: SlamState, xy, desc, valid, *, cfg, intr) -> SlamSta
     )
 
 
-def _relocalize(state: SlamState, xy, desc, valid, *, cfg, intr):
-    """Recover from lost tracking, then rebuild the EKF around the recovered
-    pose with the inlier rays (one host read of the success flag).
-    ``cfg.reloc_mode`` selects the backend: "map" matches the global ray
-    store, "keyframe" does the nearest-keyframe lookup. Returns (state,
-    info, success as a host bool)."""
-    dev = xy.device
+def _reloc_match(state: SlamState, xy, desc, valid, *, cfg, intr) -> reloclib.RelocResult:
+    """The lost branch up to its success flag, with no host read: the match
+    and the pose solve. ``cfg.reloc_mode`` selects the backend: "map"
+    matches the global ray store, "keyframe" does the nearest-keyframe
+    lookup."""
     if cfg.reloc_mode == "keyframe":
-        res = reloclib.relocalize_keyframes(desc, xy, valid, state.kf, state.rays, intr, cfg)
-    else:
-        res = reloclib.relocalize(desc, xy, valid, state.rays, intr, cfg)
-    success = bool(res.success)
-    if success:
-        ekf_state = ekflib.init_state(res.pose, cfg)
-        # seed slots with the reloc inlier rays at their map positions
-        ids = torch.where(res.matched_ok, res.matched_ray_ids, -1)
-        ekf_state = ekflib.insert_rays(ekf_state, xy, res.matched_ok, ids, intr, cfg)
-        n = ekf_state.capacity
-        slot_ray = torch.where(
-            (ekf_state.ray_ids >= 0)[:, None],
-            state.rays.rays[ekf_state.ray_ids.clamp_min(0)],
-            ekf_state.rays,
-        )
-        ekf_state = ekf_state._replace(rays=slot_ray)
-        # all slots were free pre-insert: the same claim insert_rays used
-        claim = ekflib.claim_slots(torch.zeros(n, dtype=torch.bool, device=dev), res.matched_ok)
-        safe = claim.cand_of_slot.clamp(0, desc.shape[0] - 1)
-        slot_desc = torch.where(claim.newly[:, None], desc[safe], 0.0)
-        new_state = state._replace(
-            ekf=ekf_state, slot_desc=slot_desc, lost=_scalar(False, torch.bool, dev),
-            frame_idx=state.frame_idx + 1,
-        )
-    else:
-        new_state = state._replace(frame_idx=state.frame_idx + 1)
-    info = FrameInfo(
+        return reloclib.relocalize_keyframes(desc, xy, valid, state.kf, state.rays, intr, cfg)
+    return reloclib.relocalize(desc, xy, valid, state.rays, intr, cfg)
+
+
+def _stay_lost(state: SlamState) -> SlamState:
+    """The lost branch on failure: the state passes, a frame on."""
+    return state._replace(frame_idx=state.frame_idx + 1)
+
+
+def _reseed(kept: SlamState, xy, desc, res: reloclib.RelocResult, *, cfg, intr) -> SlamState:
+    """The lost branch on success, from the stay-lost step's state ``kept``:
+    the EKF rebuilt around the recovered pose with the inlier rays at their
+    map positions, and the flag cleared."""
+    dev = xy.device
+    ekf_state = ekflib.init_state(res.pose, cfg)
+    # seed slots with the reloc inlier rays at their map positions
+    ids = torch.where(res.matched_ok, res.matched_ray_ids, -1)
+    ekf_state = ekflib.insert_rays(ekf_state, xy, res.matched_ok, ids, intr, cfg)
+    n = ekf_state.capacity
+    slot_ray = torch.where(
+        (ekf_state.ray_ids >= 0)[:, None],
+        kept.rays.rays[ekf_state.ray_ids.clamp_min(0)],
+        ekf_state.rays,
+    )
+    ekf_state = ekf_state._replace(rays=slot_ray)
+    # all slots were free pre-insert: the same claim insert_rays used
+    claim = ekflib.claim_slots(torch.zeros(n, dtype=torch.bool, device=dev), res.matched_ok)
+    safe = claim.cand_of_slot.clamp(0, desc.shape[0] - 1)
+    slot_desc = torch.where(claim.newly[:, None], desc[safe], 0.0)
+    return kept._replace(ekf=ekf_state, slot_desc=slot_desc, lost=_scalar(False, torch.bool, dev))
+
+
+def _reloc_info(new_state: SlamState, res: reloclib.RelocResult) -> FrameInfo:
+    dev = res.pose.device
+    return FrameInfo(
         pose=new_state.ekf.pose,
         num_matches=res.inliers.to(torch.int32),
         num_used=res.inliers.to(torch.int32),
@@ -514,7 +521,40 @@ def _relocalize(state: SlamState, xy, desc, valid, *, cfg, intr):
         keyframe=_scalar(False, torch.bool, dev),
         reloc_success=res.success,
     )
-    return new_state, info, success
+
+
+def _relocalize(state: SlamState, xy, desc, valid, *, cfg, intr):
+    """Recover from lost tracking (``_reloc_match``), then rebuild the EKF
+    around the recovered pose with the inlier rays (``_reseed``) or stay
+    lost (``_stay_lost``): one host read of the success flag. Returns
+    (state, info, success as a host bool)."""
+    res = _reloc_match(state, xy, desc, valid, cfg=cfg, intr=intr)
+    success = bool(res.success)
+    new_state = _stay_lost(state)
+    if success:
+        new_state = _reseed(new_state, xy, desc, res, cfg=cfg, intr=intr)
+    return new_state, _reloc_info(new_state, res), success
+
+
+def _select(cond: torch.Tensor, a, b):
+    """``a`` where ``cond``, else ``b``, leaf by leaf over nested
+    NamedTuples of tensors; a leaf that both share passes as it is."""
+    if isinstance(a, tuple):
+        return type(a)(*(_select(cond, x, y) for x, y in zip(a, b)))
+    return a if a is b else torch.where(cond, a, b)
+
+
+def _relocalize_step(state: SlamState, xy, desc, valid, *, cfg, intr):
+    """``_relocalize`` with no host read: both of its branches, the re-seed
+    and the stay-lost step, selected on the device by the success flag
+    (selects of values both branches computed: bitwise ``_relocalize``).
+    On the card ``_graphs`` captures it, with the frame's frontend, as the
+    lost frame's CUDA graph. Returns (state, info, success as a () bool
+    tensor)."""
+    res = _reloc_match(state, xy, desc, valid, cfg=cfg, intr=intr)
+    kept = _stay_lost(state)
+    new_state = _select(res.success, _reseed(kept, xy, desc, res, cfg=cfg, intr=intr), kept)
+    return new_state, _reloc_info(new_state, res), res.success
 
 
 def _apply_external_reloc(
@@ -629,11 +669,30 @@ def _track_step(state: SlamState, xy, desc, valid, *, cfg, intr):
     return s2, info._replace(keyframe=insert), torch.stack([info.lost, insert])
 
 
+def _ba_follows(state: SlamState, cfg) -> torch.Tensor:
+    """() bool: whether the windowed BA follows an insert into ``state``'s
+    keyframe store -- ``_keyframe``'s ``kf.count >= 2``, known before the
+    insert, which makes the count ``min(count + 1, max_keyframes)``: >= 2
+    where the store has two rows and holds a keyframe already."""
+    if cfg.online_ba_iters > 0 and state.kf.poses.shape[0] >= 2:
+        return state.kf.count >= 1
+    return torch.zeros_like(state.kf.count, dtype=torch.bool)
+
+
+def _insert_step(state: SlamState, xy, desc, valid, *, cfg, intr, ba: bool) -> SlamState:
+    """The insert branch for one value of its BA predicate (``ba``, from
+    ``_ba_follows``), with no host read: ``_insert_keyframe``, then
+    ``_windowed_ba`` where ``ba``. On the card ``_graphs`` captures it as
+    the insert frame's CUDA graph, one for each value of ``ba``."""
+    state = _insert_keyframe(state, xy, desc, valid, cfg=cfg, intr=intr)
+    return _windowed_ba(state, cfg=cfg, intr=intr) if ba else state
+
+
 def _keyframe(state: SlamState, xy, desc, valid, *, cfg, intr) -> tuple[SlamState, bool]:
     """The insert branch: ``_insert_keyframe`` and, with >= 2 keyframes, the
-    windowed BA. Returns the state and its lost flag as a host bool (the
-    BA's drift watchdog may set it). Host reads: ``kf.count >= 2``, and the
-    lost flag after the BA."""
+    windowed BA (``_insert_step`` with its predicate read). Returns the
+    state and its lost flag as a host bool (the BA's drift watchdog may set
+    it). Host reads: ``kf.count >= 2``, and the lost flag after the BA."""
     state = _insert_keyframe(state, xy, desc, valid, cfg=cfg, intr=intr)
     # local BA needs >= 2 keyframes for a meaningful system
     if cfg.online_ba_iters > 0 and bool(state.kf.count >= 2):
@@ -650,7 +709,14 @@ def _frame_step(state: SlamState, xy, desc, valid, *, cfg, intr, lost: bool):
     the frame before. Returns (state, info, the new state's lost flag as a
     host bool). Host reads (each a device sync): the (lost, insert) flags of
     a tracked frame, once; ``_keyframe``'s two on an insert; the
-    relocalization's success flag on a lost frame."""
+    relocalization's success flag on a lost frame.
+
+    The split points, where the reference's ``lax.cond``s are, each a
+    function with no host read that ``_graphs`` captures: ``_track_step``
+    (the tracked frame up to its insert predicate), ``_insert_step`` (the
+    insert branch for a value of ``_ba_follows``) and ``_relocalize_step``
+    (the lost branch, ``_reloc_match`` then ``_reseed`` or ``_stay_lost``
+    selected on the device)."""
     if lost:
         state, info, success = _relocalize(state, xy, desc, valid, cfg=cfg, intr=intr)
         return state, info, not success

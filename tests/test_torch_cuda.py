@@ -8,6 +8,8 @@ its own, without tests/conftest.py (which imports jax):
     python -m pytest tests/test_torch_cuda.py -q --noconftest -p no:cacheprovider
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -1059,6 +1061,142 @@ def test_step_graph_route_is_the_eager_route_and_keeps_the_callers_state(cuda_de
     assert [k[0] for k in slam_g._graphs.graphs] == ["features"]
 
 
+# the insert and lost programs of the graph routes
+
+
+@functools.lru_cache(maxsize=1)
+def _blackout_bench_frames():
+    """``bench.py``'s 720p sequence to frame 160 with frames 140-146
+    zeroed (chip_smoke.py's 4c): the cadence insert at 120, lost in the
+    blackout, relocalized after it."""
+    imgs, cams, intr = _bench_frames(161)
+    imgs[140:147] = 0.0
+    return imgs, cams, intr
+
+
+def _window_expected(infos, kind, masked) -> tuple:
+    """``_counts()``'s launches that the call sites give for a window's
+    infos: A and F a frame from pixels (A masked where the frames are), E a
+    KLT frame, C a tracked frame, an insert and a relocalization frame, D
+    a tracked frame, B never."""
+    event = torch.cat([i.event for i in infos]).cpu().numpy()
+    keyframe = torch.cat([i.keyframe for i in infos]).cpu().numpy()
+    frames, tracked = len(event), int((event == 0).sum())
+    pixels, klt = kind != "features", kind == "klt"
+    return (
+        frames * pixels, frames * masked, tracked + int(keyframe.sum()) + int((event == 1).sum()),
+        tracked, frames * pixels, frames * klt, 0,
+    )
+
+
+@pytest.mark.parametrize(
+    "kind, mode, masked",
+    [("redetect", "map", False), ("redetect", "keyframe", False), ("redetect", "map", True),
+     ("klt", "map", False), ("klt", "keyframe", False), ("klt", "map", True),
+     ("features", "map", False), ("features", "keyframe", False)],
+)
+def test_graph_route_insert_and_lost_programs_are_the_eager_route_bitwise(cuda_device, kind, mode, masked):
+    """``bench.py``'s 720p sequence with the 140-146 blackout, frames 1-99
+    in one call, then 100-160 one a call (the cadence insert at 120, the
+    lost frames and the recovery), in re-detect, KLT and features mode,
+    both reloc modes and with a mask: the graph route's FrameInfos, final
+    state and KLT carry are bitwise the eager route's, and both launch
+    what the call sites give. The same ``PTZSlam`` then runs 100-160 again
+    from its kept state at 99, every program captured by then: bitwise
+    again, and from frame 101 the host waits 2 times on an insert frame,
+    once on a lost frame and once on a tracked frame."""
+    imgs, cams, intr = _blackout_bench_frames()
+    frames = torch.from_numpy(imgs).to(cuda_device)
+    masks = None
+    if masked:
+        masks = torch.ones(frames.shape, dtype=torch.bool, device=cuda_device)
+        masks[:, 100:300, 200:400] = False
+        masks[:, 450:700, 900:1200] = False
+    cfg = SLAMConfig(reloc_mode=mode)
+    feats = None
+    if kind == "features":
+        staged = [extract_features(frames[k], cfg) for k in range(frames.shape[0])]
+        feats = tuple(torch.stack([f[i] for f in staged]) for i in range(3))
+
+    def call(slam, state, carry, a, b):
+        m = None if masks is None else masks[a:b]
+        if kind == "redetect":
+            return (*slam.run_segment_pixels(state, frames[a:b], m), carry)
+        if kind == "klt":
+            state, info, xy, valid = slam.run_segment_pixels_klt(state, frames[a:b], frames[a - 1], *carry, masks=m)
+            return state, info, (xy, valid)
+        return (*slam.run_segment(state, *(v[a:b] for v in feats)), carry)
+
+    def window(slam, state, carry, waits=None):
+        infos = []
+        for f in range(100, 161):
+            def one():
+                nonlocal state, carry
+                state, info, carry = call(slam, state, carry, f, f + 1)
+                infos.append(info)
+
+            if waits is None or f == 100:   # 100: the call reads the kept state's lost flag
+                one()
+            else:
+                waits.append(_waits(one))
+        return state, infos, carry
+
+    out = {}
+    for graphs in (True, False):
+        slam = PTZSlam(cfg, intr, _graphs=graphs)
+        first = (v[0] for v in feats) if feats else extract_features(frames[0], slam.cfg, mask=None if masks is None else masks[0])
+        xy0, desc0, valid0 = first
+        state = slam.init(xy0, desc0, valid0, cams[0])
+        state, _, carry = call(slam, state, (xy0, valid0), 1, 100)
+        kept = state, carry
+        before = _counts()
+        result = window(slam, state, carry)
+        out[graphs] = (*result, tuple(a - b for a, b in zip(_counts(), before)), slam, kept)
+    (s_g, i_g, c_g, n_g, slam_g, kept), (s_e, i_e, c_e, n_e, _, _) = out[True], out[False]
+    assert all(_bitwise(a, b) for a, b in zip(i_g, i_e)) and _bitwise(s_g, s_e)
+    assert all(torch.equal(a, b) for a, b in zip(c_g, c_e))
+    assert n_g == n_e == _window_expected(i_e, kind, masked)
+    event = torch.cat([i.event for i in i_e]).cpu().numpy()
+    keyframe = torch.cat([i.keyframe for i in i_e]).cpu().numpy()
+    assert keyframe[20] and (event == 1).sum() >= 2 and torch.cat([i.reloc_success for i in i_e]).any()
+    (g,) = slam_g._graphs.graphs.values()
+    assert all(g.programs[p].replay is not None for p in ("track", "insert+ba", "lost"))
+    waits = []
+    s_2, i_2, c_2 = window(slam_g, *kept, waits=waits)
+    assert all(_bitwise(a, b) for a, b in zip(i_2, i_e)) and _bitwise(s_2, s_e)
+    assert all(torch.equal(a, b) for a, b in zip(c_2, c_e))
+    want = [2 if k else 1 for k in keyframe[1:]]
+    assert waits == want, [(101 + f, w, x) for f, (w, x) in enumerate(zip(waits, want)) if w != x]
+
+
+def test_host_read_in_the_insert_program_makes_its_capture_raise(cuda_device, monkeypatch):
+    """A host read put inside the insert branch: the tracked frames replay,
+    the insert's first use (eager) runs, its capture raises, and so does the
+    next insert; nothing falls back to the eager route."""
+    from ptzjax_torch import slam as tslam
+
+    imgs, cams, intr = _render(30)
+    cfg = _small_cfg(keyframe_interval=6)
+    frames = torch.from_numpy(imgs).to(cuda_device)
+    slam = PTZSlam(cfg, intr)
+    state = slam.init(*extract_features(frames[0], slam.cfg), cams[0])
+    step = tslam._insert_step
+
+    def reading_step(*args, **kw):
+        out = step(*args, **kw)
+        bool(out.lost)
+        return out
+
+    monkeypatch.setattr(tslam, "_insert_step", reading_step)
+    with pytest.raises(RuntimeError):
+        slam.run_segment_pixels(state, frames[1:12])
+    with pytest.raises(RuntimeError):
+        slam.run_segment_pixels(state, frames[1:12])
+    (g,) = slam._graphs.graphs.values()
+    assert g.programs["track"].replay is not None
+    assert g.programs["insert+ba"].replay is None and g.programs["insert"].replay is None
+
+
 def test_host_read_in_the_captured_step_makes_the_capture_raise(cuda_device, monkeypatch):
     """A host read put inside the step: the first frame (eager) runs, the
     capture raises, and so does the next call; nothing falls back to the
@@ -1082,4 +1220,4 @@ def test_host_read_in_the_captured_step_makes_the_capture_raise(cuda_device, mon
         slam.run_segment_pixels(state, frames[1:3])
     with pytest.raises(RuntimeError):
         slam.run_segment_pixels(state, frames[1:3])
-    assert all(g._replay is None for g in slam._graphs.graphs.values())
+    assert all(p.replay is None for g in slam._graphs.graphs.values() for p in g.programs.values())

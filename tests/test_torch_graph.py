@@ -4,9 +4,10 @@ on a 24-frame sequence with two keyframe inserts (frames 8 and 17) and a
 blackout (frames 14-15: lost, relocalized at 16).
 
 The capture itself needs the card (``tests/test_torch_cuda.py``); here the
-graph loop runs with its first frame and replays done eagerly, which checks
-everything around the capture: the state buffers, the write-back, the eager
-insert and relocalization frames, the skipped frames and the returned state.
+graph loop runs with its programs' first uses and replays done eagerly,
+which checks everything around the capture: the state buffers, the
+write-back, the insert and lost programs, the skipped frames and the
+returned state.
 """
 
 import jax
@@ -283,20 +284,23 @@ def test_split_route_holds_against_reference_frame_step(seq, mode):
 
 @pytest.fixture
 def eager_replays(monkeypatch):
-    """``TrackGraph``'s first frame and replays done eagerly on the CPU: the
-    same work, without a capture."""
+    """Every ``TrackGraph`` program's first use and replays ("track",
+    "insert", "insert+ba", "lost") done eagerly on the CPU: the same work,
+    without a capture. Each program counts its replays in ``replays``."""
 
-    def first_frame(self):
-        out = self._step()
+    def first_use(self, owner):
+        out = self.fn(owner)
+        self.replays = 0
 
         def replay():
-            self._out = self._step()
+            self._out = self.fn(owner)
+            self.replays += 1
 
-        self._replay = replay
+        self.replay = replay
         self._rise = (0,) * len(_graphs.COUNTERS)
         return out
 
-    monkeypatch.setattr(_graphs.TrackGraph, "_first_frame", first_frame)
+    monkeypatch.setattr(_graphs.Program, "first_use", first_use)
 
 
 def _graph_slam(seq, mode):
@@ -308,8 +312,8 @@ def _graph_slam(seq, mode):
 @pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
 @pytest.mark.parametrize("mode", ["map", "keyframe"])
 def test_graph_loop_matches_the_eager_route(seq, eager_replays, mode, masked):
-    """The graph loop (tracked frames through the state buffers, eager insert
-    and relocalization frames, skipped frames) gives bitwise the eager
+    """The graph loop (tracked, insert and lost frames through the state
+    buffers, skipped frames) gives bitwise the eager
     route's states and infos, over calls of one frame and of several, and
     leaves the caller's state as it was."""
     imgs, _, _ = seq
