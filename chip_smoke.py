@@ -11,7 +11,14 @@ checkout's detection stage; ``--frame-walls`` likewise prints only the wall
 medians of 4d's tracked frames in re-detect, KLT and features mode, through
 the public entry points.)
 
-Phases, each of which raises (non-zero exit) on failure:
+Phases, each of which raises (non-zero exit) on failure. They run in the
+order 1, 2, 4a-4c, 4e, the wall passes of 4d, 4h, 4g, 5a-5g, then the phases
+that use the profiler: 3a-3f, the profiled passes of 4d, 4f and 5e's frames.
+After a profiler session a launch of a graph with conditional nodes makes
+the host wait for the card, so every wall of the graph route is taken
+before the first one; the profiled passes reuse ``PTZSlam``s whose graphs were made
+before it (the kernels of a conditional body in a graph made after one were
+traced with inflated times, or not at all).
 
 1. device and flags: a CUDA device is required (no CPU fallback); both TF32
    flags are set to False; the card's name and power limit are printed;
@@ -63,9 +70,10 @@ Phases, each of which raises (non-zero exit) on failure:
    keyframe insert, the Cholesky once per tracked frame), no frame may be
    lost, the pan error against ground truth must stay under 3e-3 rad and
    windowed BA must have run; printed twice, with the same gates: the
-   first pass with its graphs' captures, then a second pass of the
-   sequence on the same ``PTZSlam`` (every program captured: the steady
-   state), whose poses must equal the first's. (c) The same sequence with frames 140-146
+   first pass with its frame graph's captures, then a second pass of the
+   sequence on the same ``PTZSlam`` (its frame graph captured: the steady
+   state), whose poses must equal the first's; both passes' frames/s and
+   the frame graph's set-up. (c) The same sequence with frames 140-146
    (after the frame-120 cadence insert) blacked out, once per
    ``reloc_mode`` ("map", "keyframe"): tracking must go lost in the
    blackout, relocalize, track every frame from 15 frames after it with a
@@ -76,8 +84,10 @@ Phases, each of which raises (non-zero exit) on failure:
    route (``PTZSlam(..., _graphs=False)``) in turns, over 40 tracked
    frames, the insert frame (120, ten times from the same state) and the
    relocalization frames, each window's first frame run once before it
-   (so that its programs are captured before the clock), with each
-   program's capture + instantiation time and pool growth as set-up; and
+   (so that the frame graph is captured before the clock), one frame a
+   call, then on the graph route each window in one call (wall a frame,
+   busy share), with the frame graph's set-up (captures, assembly,
+   instantiation) and pool growth; and
    the same 40 tracked frames in KLT
    mode and in features mode (``run_segment`` on the re-detect frontend's
    features, staged before the clock as ``--offline`` stages them), each
@@ -102,12 +112,12 @@ Phases, each of which raises (non-zero exit) on failure:
    the eager route over frames 100-160 of the 4c sequence (the insert at
    120, the blackout, the relocalization), one frame a call, in re-detect,
    KLT and features mode, in map mode, in keyframe mode and (re-detect,
-   KLT) with a mask of three boxes, the graph route twice on one
-   ``PTZSlam`` (the second pass from its kept state, every program
-   captured): every FrameInfo, the final state and the KLT carry bitwise
-   equal, the same launches, which are the call sites', and on the second
-   pass the host's waits for the card a frame (sync debug mode): 2 on an
-   insert frame, 1 on a lost and on a tracked frame.
+   KLT) with a mask of three boxes, the graph route three times on one
+   ``PTZSlam`` from its kept state at 99 (twice one frame a call, then the
+   window in one call): every FrameInfo, the final state and the KLT carry
+   bitwise equal, the same launches, which are the call sites', the
+   branches the frame graph took, and the host's waits for the card (sync
+   debug mode): 1 a call on every frame kind, 1 for the one-call pass.
 
 5. the CLI (``ptzjax_torch.run``) on the card, each run with the counters
    set to 0 just before it and read just after: (a) ``run.main`` in-process
@@ -129,8 +139,9 @@ Phases, each of which raises (non-zero exit) on failure:
    5e-3 rad (tests/test_baselines.py's bar), launches A 96, F 96 (the staged
    features), C 95 (one match a tracked frame), B, D and E 0; the first 8 frames on
    the card against the same CLI with ``--device cpu``; then
-   ``track_homography_ekf`` over frames 1-40 of 4b's sequence: wall, device
-   time and kernels a frame. (f) ``--offline`` on
+   ``track_homography_ekf`` over frames 1-40 of 4b's sequence on the graph
+   route (one graph replayed a frame) and the eager route: bitwise, and
+   wall, device time, kernels and busy share a frame. (f) ``--offline`` on
    5a's sequence (720p, 192 frames: at 96 the keyframe policy inserts none,
    and BA would refine rays against the one frozen bootstrap camera): no
    lost frame, pan MAE < 3e-3 rad, the BA cost not raised, launches A and F
@@ -1067,34 +1078,44 @@ INSERT_REPEATS = 10   # 4d runs it this many times from the same state
 
 
 def captures(slam) -> list:
-    """(graph kind, program, capture + instantiation s, pool growth bytes)
-    of each program a ``PTZSlam``'s graph route has captured."""
+    """(graph kind, set-up s, pool growth bytes) of each frame graph a
+    ``PTZSlam``'s graph route has captured: the captures of its four
+    branches, the assembly and the instantiation, and the growth of their
+    one pool."""
     if slam._graphs is None:
         return []
     return [
-        (g.kind, name, p.capture_s, p.pool_bytes)
-        for g in slam._graphs.graphs.values() for name, p in g.programs.items() if p.capture_s is not None
+        (g.kind, g.program.capture_s, g.program.pool_bytes)
+        for g in slam._graphs.graphs.values() if g.program.capture_s is not None
     ]
 
 
 def describe_captures(caps) -> str:
-    return ", ".join(f"{kind} {name} {1e3 * s:.1f} ms +{b / 2**20:.0f} MiB" for kind, name, s, b in caps)
+    return ", ".join(f"{kind} frame graph {1e3 * s:.1f} ms +{b / 2**20:.0f} MiB" for kind, s, b in caps)
 
 
-def frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
+def frame_phase(imgs: torch.Tensor, cams, intr, card: str, measured=None):
     """4d: wall and device time and kernels per frame kind, in each reloc
     mode, through the graph route (the default) and the eager route
     (``_graphs=False``), the two routes' wall passes in turns: 40 tracked
     frames (40-79), the insert frame (INSERT_FRAME, run INSERT_REPEATS
-    times from the state before it: the tracked replay, then the insert and
+    times from the state before it: the track branch, then the insert and
     the windowed BA) and the relocalization frames (141-147) of the 4c
     sequence. Each window's first frame runs once from the window's start
     state before the timed frames, which start from it again, so that the
-    graph route's programs are captured before the clock. Frames run one
+    graph route's frame graph is captured before the clock. Frames run one
     per call with a sync after each; one pass times their wall clock, a
     second pass runs the profiler over them (its per-launch cost would
-    swell a wall time). The graph route's captures (capture +
-    instantiation, pool growth) are set-up, printed apart."""
+    swell a wall time). Then two passes of the graph route time each
+    window in one call (the insert frame is a window of one), its wall
+    divided by its frames: a call waits for the card once, so this is the
+    frame's wall inside a segment. The frame graph's set-up (its captures,
+    assembly and instantiation, pool growth) is printed apart.
+
+    Called twice: without ``measured`` it runs the wall passes and returns
+    them, before any profiler session (after one, a launch of a graph with
+    conditional nodes makes the host wait for the card); with them it runs
+    the profiled passes and prints every row."""
     from ptzjax_torch.config import SLAMConfig
     from ptzjax_torch.frontend import extract_features
     from ptzjax_torch.slam import PTZSlam
@@ -1108,8 +1129,9 @@ def frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
         ("reloc", range(BLACKOUT.start + 1, BLACKOUT.stop + 1), 1),
     )
 
-    def run(mode: str, graphs: bool, traced: bool) -> dict:
-        slam = PTZSlam(SLAMConfig(reloc_mode=mode), intr, _graphs=graphs)   # the card, by default
+    def run(mode: str, graphs: bool, traced: bool, one_call: bool = False, slam=None) -> dict:
+        if slam is None:
+            slam = PTZSlam(SLAMConfig(reloc_mode=mode), intr, _graphs=graphs)   # the card, by default
         state = slam.init(*extract_features(dark[0], slam.cfg), cams[0])
         at, out = 1, {}
         for kind, frames, event in windows:
@@ -1118,16 +1140,17 @@ def frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
             torch.cuda.synchronize()
             at = frames.stop
             reps = INSERT_REPEATS if kind == "insert" else 1
+            spans = [(frames.start, frames.stop)] if one_call else [(f, f + 1) for f in frames]
             walls, events = [], []
             with profiled() if traced else contextlib.nullcontext() as prof:
-                for f in frames:
+                for a, b in spans:
                     before = state
                     for _ in range(reps):
                         t0 = time.perf_counter()
-                        state, info = slam.run_segment_pixels(before, dark[f:f + 1])
+                        state, info = slam.run_segment_pixels(before, dark[a:b])
                         torch.cuda.synchronize()
-                        walls.append(time.perf_counter() - t0)
-                        events.append(int(info.event[0]) + 2 * int(info.keyframe[0]))
+                        walls.append((time.perf_counter() - t0) / (b - a))
+                        events += (info.event + 2 * info.keyframe.to(torch.int32)).tolist()
             check(all(e == event for e in events), f"4d {mode}: frames {frames} ran events {events}")
             if not traced:
                 out[kind] = float(np.median(walls)) * 1e3
@@ -1138,40 +1161,61 @@ def frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
             for name, us in kernels:
                 by_name[name] = by_name.get(name, 0.0) + us
             out[kind] = (
-                sum(by_name.values()) / len(walls) / 1e3, len(kernels) / len(walls),
+                sum(by_name.values()) / len(events) / 1e3, len(kernels) / len(events),
                 sorted(by_name.items(), key=lambda kv: -kv[1])[:4],
             )
         if graphs and not traced:
             out["captures"] = captures(slam)
+        out["slam"] = slam
         return out
 
+    if measured is None:   # the wall passes: no profiler session may come before them
+        measured = {}
+        for mode in ("map", "keyframe"):
+            walls: dict = {}
+            for graphs in (True, False, False, True):
+                walls.setdefault(graphs, []).append(run(mode, graphs, False))
+            measured[mode] = walls, [run(mode, True, False, one_call=True) for _ in range(2)]
+        return measured
     for mode in ("map", "keyframe"):
-        walls, traced = {}, {}
-        for graphs in (True, False, False, True):
-            walls.setdefault(graphs, []).append(run(mode, graphs, False))
+        (walls, one_call), traced = measured[mode], {}
         for graphs in (True, False):
+            # on a PTZSlam of the wall passes, whose frame graph was made
+            # before any profiler session: one made after it has its kernels
+            # in conditional bodies traced with inflated times, or not at all
+            slam = walls[graphs][0]["slam"]
             traced[graphs] = repeat_until_same(
-                lambda: run(mode, graphs, True), lambda r: tuple(v[1] for v in r.values())
+                lambda: run(mode, graphs, True, slam=slam),
+                lambda r: tuple(v[1] for k, v in r.items() if k != "slam"),
             )
         for w in walls[True]:
             print(
-                f"4d reloc_mode={mode}, graph route: captures (capture + instantiation, pool growth) "
-                + describe_captures(w["captures"]) + f" (once a PTZSlam and program, set-up) [{card}]"
+                f"4d reloc_mode={mode}, graph route: set-up (captures + assembly + instantiation, pool growth) "
+                + describe_captures(w["captures"]) + f" (once a PTZSlam, in its first call) [{card}]"
             )
         for kind, frames, _ in windows:
+            nf = len(frames) * (INSERT_REPEATS if kind == "insert" else 1)
             for graphs in (True, False):
                 device_ms, per_frame, top = traced[graphs][kind]
                 wall = float(np.median([w[kind] for w in walls[graphs]]))
-                nf = len(frames) * (INSERT_REPEATS if kind == "insert" else 1)
                 print(
                     f"4d {kind} frames {frames.start}-{frames.stop - 1}"
                     + (f" x{INSERT_REPEATS} from one state" if kind == "insert" else "")
-                    + f", reloc_mode={mode}, {'graph' if graphs else 'eager'} route: wall median {wall:.3f} ms "
-                    f"(passes {', '.join(f'{w[kind]:.3f}' for w in walls[graphs])}), device {device_ms:.4f} ms "
-                    f"a frame ({per_frame:.1f} kernels, busy {100 * device_ms / wall:.1f}%); largest: "
+                    + f", reloc_mode={mode}, {'graph' if graphs else 'eager'} route, one frame a call: wall median "
+                    f"{wall:.3f} ms (passes {', '.join(f'{w[kind]:.3f}' for w in walls[graphs])}), device "
+                    f"{device_ms:.4f} ms a frame ({per_frame:.1f} kernels, busy {100 * device_ms / wall:.1f}%); largest: "
                     + "; ".join(f"{name[:60]} {us / nf / 1e3:.4f} ms" for name, us in top)
                     + f" [{card}]"
                 )
+            device_ms = traced[True][kind][0]
+            wall = float(np.median([w[kind] for w in one_call]))
+            print(
+                f"4d {kind} frames {frames.start}-{frames.stop - 1}"
+                + (f" x{INSERT_REPEATS} from one state" if kind == "insert" else "")
+                + f", reloc_mode={mode}, graph route, {len(frames)} frame(s) in one call: wall a frame {wall:.3f} ms "
+                f"(passes {', '.join(f'{w[kind]:.3f}' for w in one_call)}), device {device_ms:.4f} ms a frame, busy "
+                f"{100 * device_ms / wall:.1f}% [{card}]"
+            )
 
 
 TRACKED = range(40, 80)   # 4d's and 4h's tracked frames (no insert, no loss)
@@ -1198,15 +1242,18 @@ class Loop:
     ("KLT", the carry threaded from call to call: the chunk's last frame and
     the table it returned) or ``run_segment`` ("features", on
     ``staged_features``). ``graphs=False`` asks for the eager route (the
-    default constructor otherwise, so that an older checkout runs it)."""
+    default constructor otherwise, so that an older checkout runs it);
+    ``slam`` reuses a ``PTZSlam`` (and its graphs) of an earlier loop."""
 
-    def __init__(self, kind: str, imgs, cams, intr, *, mode="map", graphs=True, masks=None, feats=None):
+    def __init__(self, kind: str, imgs, cams, intr, *, mode="map", graphs=True, masks=None, feats=None, slam=None):
         from ptzjax_torch.config import SLAMConfig
         from ptzjax_torch.frontend import extract_features
         from ptzjax_torch.slam import PTZSlam
 
         cfg = SLAMConfig(reloc_mode=mode)
-        self.slam = PTZSlam(cfg, intr) if graphs else PTZSlam(cfg, intr, _graphs=False)
+        if slam is None:
+            slam = PTZSlam(cfg, intr) if graphs else PTZSlam(cfg, intr, _graphs=False)
+        self.slam = slam
         self.kind, self.imgs, self.masks, self.feats = kind, imgs, masks, feats
         first = tuple(v[0] for v in feats) if kind == "features" else extract_features(imgs[0], self.slam.cfg)
         self.state = self.slam.init(*first, cams[0])
@@ -1267,14 +1314,16 @@ def graph_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
     in re-detect, KLT and features mode (``run_segment`` on
     ``staged_features``), in map mode, in keyframe mode and (re-detect,
     KLT) with a mask of three boxes on every frame. The graph route runs
-    the window twice on one ``PTZSlam``, the second time from its kept
-    state at 99 with every program captured: on both passes every
-    FrameInfo, the final state and the KLT carry bitwise equal to the
-    eager route's and the same launches, which are the call sites'; on the
-    second pass, from frame 101, the host's waits for the card (sync debug
-    mode) a frame: 2 on an insert frame, 1 on a lost frame, 1 on a tracked
-    frame, all in ``_graphs.py``."""
+    the window three times on one ``PTZSlam``, each from its kept state at
+    99: twice one frame a call (the first pass's first call captures the
+    frame graph), then the whole window in one call. On every pass every
+    FrameInfo, the final state and the KLT carry are bitwise the eager
+    route's and the launches the same, which are the call sites'; the host
+    waits for the card (sync debug mode) once a call, in ``_graphs.py``,
+    on every frame kind (counted from frame 101 on the second pass, whose
+    calls all replay) and once for the one-call pass."""
     from ptzjax_torch.kernels import harris_nms
+    from ptzjax_torch.slam import FrameInfo
 
     dark = imgs[:WINDOW.stop].clone()
     dark[BLACKOUT.start:BLACKOUT.stop] = 0.0
@@ -1291,16 +1340,21 @@ def graph_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
             loop = Loop(kind, dark, cams, intr, mode=mode, graphs=graphs, masks=masks, feats=feats)
             loop.run(WINDOW.start)
             kept = loop.state, loop.carry
-            for _ in range(2 if graphs else 1):
+            for one_call in ((False, False, True) if graphs else (False,)):
                 loop.state, loop.carry, loop.at = *kept, WINDOW.start
                 reset_counts()
                 infos, waits = [], []
-                for f in WINDOW:
-                    waits.append(sync_sites(lambda: infos.append(loop.run(f + 1))))
+                if one_call:
+                    waits.append(sync_sites(lambda: infos.append(loop.run(WINDOW.stop))))
+                    infos = [FrameInfo(*(v[k:k + 1] for v in infos[0])) for k in range(len(WINDOW))]
+                else:
+                    for f in WINDOW:
+                        waits.append(sync_sites(lambda: infos.append(loop.run(f + 1))))
                 counts = {**read_counts(), "masked": harris_nms.masked_launches}
                 passes[graphs].append((loop.state, infos, waits, counts, loop.carry[1:]))
             if graphs:
                 capture = captures(loop.slam)
+                taken = dict(next(iter(loop.slam._graphs.graphs.values())).counts)
         (s_e, i_e, w_e, n_e, c_e), = passes[False]
         what = f"4h {kind} reloc_mode={mode} masked={masked}"
         want = window_counts(i_e, kind, masked)
@@ -1317,24 +1371,30 @@ def graph_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
             and any(bool(i.reloc_success[0]) for i in i_e),
             f"{what}: frame kinds {kinds} (want the insert at {INSERT_FRAME}, lost frames and a recovery)",
         )
-        w_g = passes[True][1][2]
+        w_g, w_one = passes[True][1][2], passes[True][2][2]
         by_kind: dict = {}
         for f, e, w in zip(WINDOW, kinds, w_g):
-            if f > WINDOW.start:   # the rewound call reads the kept state's lost flag
+            if f > WINDOW.start:
                 by_kind.setdefault({0: "tracked", 1: "lost", 2: "insert"}[e], set()).add(len(w))
         check(
-            all(len(w) == (2 if e == 2 else 1) and all("_graphs.py" in x for x in w)
-                for f, e, w in zip(WINDOW, kinds, w_g) if f > WINDOW.start),
+            all(len(w) == 1 and all("_graphs.py" in x for x in w) for f, w in zip(WINDOW, w_g) if f > WINDOW.start),
             f"{what}: graph-route waits a frame {[(f, w) for f, w in zip(WINDOW, w_g)][1:][:4]}",
+        )
+        check(len(w_one[0]) == 1 and "_graphs.py" in w_one[0][0], f"{what}: the one-call pass waited at {w_one}")
+        branches = {"lost": 3 * kinds.count(1), "track": 3 * kinds.count(0) + 3 * kinds.count(2)}
+        check(
+            all(taken[b] >= n for b, n in branches.items()) and taken["insert+ba"] >= 3,
+            f"{what}: the frame graph took {taken}",
         )
         print(
             f"4h graph route vs eager, {kind}, frames {WINDOW.start}-{WINDOW.stop - 1} (insert at {INSERT_FRAME}, "
             f"blackout {BLACKOUT.start}-{BLACKOUT.stop - 1}; kinds: {kinds.count(0)} tracked, {kinds.count(2)} insert, "
             f"{kinds.count(1)} lost), reloc_mode={mode}, mask {'3 boxes' if masked else 'none'}: FrameInfos, final "
-            f"state{' and carry' if kind == 'KLT' else ''} bitwise equal on both graph passes; launches {n_e}, the "
-            f"call sites'; host waits a frame on the second graph pass {by_kind} at "
-            f"{sorted(set(sum(w_g, [])))}, eager {sorted({len(w) for w in w_e})}; captures "
-            + describe_captures(capture) + f" [{card}]"
+            f"state{' and carry' if kind == 'KLT' else ''} bitwise equal on two one-frame-a-call graph passes and "
+            f"one one-call pass; launches {n_e}, the call sites'; host waits a call on the second pass {by_kind}, "
+            f"on the one-call pass {len(w_one[0])}, at {sorted(set(sum(w_g + w_one, [])))}, eager waits a frame "
+            f"{sorted({len(w) for w in w_e})}; branches the frame graph took over the graph passes (and the "
+            f"frames before) {taken}; set-up " + describe_captures(capture) + f" [{card}]"
         )
 
 
@@ -1394,55 +1454,66 @@ def klt_phase(imgs: torch.Tensor, cams, intr, card: str):
     return counts
 
 
-def mode_frame_phase(imgs: torch.Tensor, cams, intr, card: str, kind: str) -> dict:
+def mode_frame_phase(imgs: torch.Tensor, cams, intr, card: str, kind: str, measured=None):
     """4d, KLT mode ("KLT") or features mode ("features": ``run_segment`` on
     ``staged_features``, made before the clock): the 40 tracked frames
     40-79 one a call with a sync after each, through the graph route (the
     default) and the eager route (``_graphs=False``): a wall pass of each
     in turns (graph, eager, eager, graph), the launches of every pass
-    counted (each kernel of the mode once a frame), then a pass of each
-    under the profiler. Prints wall, device, kernels and busy share a frame
-    and the graph's capture + instantiation time; returns the first graph
-    pass's launch counts."""
+    counted (each kernel of the mode once a frame), then, on the graph
+    route, two passes of the 40 frames in one call (wall a frame), then a
+    pass of each route under the profiler. Called twice, as
+    ``frame_phase``: without ``measured`` it runs the wall passes (printing
+    the launches and the frame graph's set-up) and returns them with the
+    first graph pass's launch counts; with them it runs the profiled
+    passes, on the wall passes' first ``PTZSlam`` of each route, and
+    prints wall, device, kernels and busy share a frame."""
     feats = staged_features(imgs, cams, TRACKED.stop) if kind == "features" else None
     nf = len(TRACKED)
 
-    def run(graphs: bool, traced: bool):
-        loop = Loop(kind, imgs, cams, intr, graphs=graphs, feats=feats)
+    def run(graphs: bool, traced: bool, one_call: bool = False, slam=None):
+        loop = Loop(kind, imgs, cams, intr, graphs=graphs, feats=feats, slam=slam)
         loop.run(TRACKED.start)
         torch.cuda.synchronize()
         walls, events = [], []
         reset_counts()
+        stops = [TRACKED.stop] if one_call else [f + 1 for f in TRACKED]
         with profiled() if traced else contextlib.nullcontext() as prof:
-            for f in TRACKED:
+            for stop in stops:
                 t0 = time.perf_counter()
-                info = loop.run(f + 1)
+                info = loop.run(stop)
                 torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-                events.append(int(info.event[0]) + 2 * int(info.keyframe[0]))
+                walls.append((time.perf_counter() - t0) / len(info.event))
+                events += (info.event + 2 * info.keyframe.to(torch.int32)).tolist()
         check(all(e == 0 for e in events), f"4d {kind}: frames {TRACKED} ran events {events}")
-        return float(np.median(walls)) * 1e3, prof, read_counts(), captures(loop.slam) if graphs else []
+        return float(np.median(walls)) * 1e3, prof, read_counts(), loop.slam
 
-    walls: dict = {True: [], False: []}
-    counts, caps = {}, []
-    for graphs in (True, False, False, True):
-        wall, _, c, capture = run(graphs, False)
-        walls[graphs].append(wall)
-        caps += capture
-        counts.setdefault(graphs, []).append(c)
-    each = nf if kind == "KLT" else 0
-    want = {
-        **dict.fromkeys(COUNTER_NAMES, each), "gather_windows": 0, "match_scores": nf, "cholesky": nf,
-    }
-    print(f"4d {kind} tracked frames {TRACKED.start}-{TRACKED.stop - 1}: launches {counts[True][0]}")
-    for graphs, cs in counts.items():
-        check(all(c == want for c in cs), f"4d {kind} graphs={graphs}: launches {cs}, call sites give {want}")
-    print(
-        f"4d {kind}, graph route: captures (capture + instantiation, pool growth) " + describe_captures(caps)
-        + f" (one graph a PTZSlam, set-up) [{card}]"
-    )
+    if measured is None:
+        walls: dict = {True: [], False: []}
+        counts, slams = {}, {}
+        for graphs in (True, False, False, True):
+            wall, _, c, slam = run(graphs, False)
+            walls[graphs].append(wall)
+            slams.setdefault(graphs, slam)
+            counts.setdefault(graphs, []).append(c)
+        one_call = [run(True, False, one_call=True)[0] for _ in range(2)]
+        each = nf if kind == "KLT" else 0
+        want = {
+            **dict.fromkeys(COUNTER_NAMES, each), "gather_windows": 0, "match_scores": nf, "cholesky": nf,
+        }
+        print(f"4d {kind} tracked frames {TRACKED.start}-{TRACKED.stop - 1}: launches {counts[True][0]}")
+        for graphs, cs in counts.items():
+            check(all(c == want for c in cs), f"4d {kind} graphs={graphs}: launches {cs}, call sites give {want}")
+        print(
+            f"4d {kind}, graph route: set-up (captures + assembly + instantiation, pool growth) "
+            + describe_captures(captures(slams[True])) + f" (once a PTZSlam, in its first call) [{card}]"
+        )
+        return (walls, one_call, slams), counts[True][0]
+    walls, one_call, slams = measured
     for graphs in (True, False):
-        kernels = repeat_until_same(lambda: device_kernels(run(graphs, True)[1]), lambda k: (len(k),))
+        kernels = repeat_until_same(
+            lambda: device_kernels(run(graphs, True, slam=slams[graphs])[1]), lambda k: (len(k),)
+        )
         check(kernels, "the profiler recorded no device time")
         by_name: dict = {}
         for name, us in kernels:
@@ -1452,13 +1523,19 @@ def mode_frame_phase(imgs: torch.Tensor, cams, intr, card: str, kind: str) -> di
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
         print(
             f"4d {kind} tracked frames {TRACKED.start}-{TRACKED.stop - 1} (no keyframe insert), "
-            f"{'graph' if graphs else 'eager'} route: wall median {wall:.3f} ms (passes "
+            f"{'graph' if graphs else 'eager'} route, one frame a call: wall median {wall:.3f} ms (passes "
             f"{', '.join(f'{w:.3f}' for w in walls[graphs])}), device {device_ms:.4f} ms a frame "
             f"({len(kernels) / nf:.1f} kernels, busy {100 * device_ms / wall:.1f}%); largest: "
             + "; ".join(f"{name[:60]} {us / nf / 1e3:.4f} ms" for name, us in top)
             + f" [{card}]"
         )
-    return counts[True][0]
+        if graphs:
+            wall = float(np.median(one_call))
+            print(
+                f"4d {kind} tracked frames {TRACKED.start}-{TRACKED.stop - 1}, graph route, {nf} frames in one call: "
+                f"wall a frame {wall:.3f} ms (passes {', '.join(f'{w:.3f}' for w in one_call)}), device "
+                f"{device_ms:.4f} ms a frame, busy {100 * device_ms / wall:.1f}% [{card}]"
+            )
 
 
 def bench_ba_problem(dev, k: int = 32, m: int = 4096, c: int = 6, seed: int = 0):
@@ -1742,9 +1819,17 @@ def module_phase(tmp: str, card: str) -> None:
 
 
 def homography_frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
-    """5e: ``track_homography_ekf`` over frames 1-40 of 4b's sequence, its
-    features staged on the card: wall per frame (one pass), device time and
-    kernels per frame (a second pass, under the profiler)."""
+    """5e: the homography baseline over frames 1-40 of 4b's sequence, its
+    features staged on the card, through the graph route (the default:
+    ``track_homography_ekf``'s ``_graphs.VOGraph``, whose first frame runs
+    eagerly and is then captured, the rest replays of one graph) and the
+    eager route (``_graphs=False``): the graph route's infos and final
+    carry bitwise the eager route's; wall a frame in turns (graph, eager,
+    eager, graph) over calls of 40 frames, the graph route's on one
+    ``VOGraph`` whose graph an earlier call captured (the call's set-up,
+    timed apart, is the first call's); device time and kernels a frame (a
+    pass under the profiler) and the busy share."""
+    from ptzjax_torch._graphs import VOGraph
     from ptzjax_torch.baselines import init_vo, track_homography_ekf
     from ptzjax_torch.config import SLAMConfig
     from ptzjax_torch.frontend import extract_sequence
@@ -1752,36 +1837,52 @@ def homography_frame_phase(imgs: torch.Tensor, cams, intr, card: str) -> None:
     cfg = SLAMConfig()
     xy, desc, valid = extract_sequence(imgs[:41], cfg)
     state = init_vo(cams[0], xy[0], desc[0], valid[0], cfg)
+    vo = VOGraph(state, cfg=cfg, intr=intr)
+    routes = {
+        True: lambda: vo.run(state, xy[1:], desc[1:], valid[1:]),
+        False: lambda: track_homography_ekf(state, xy[1:], desc[1:], valid[1:], intr=intr, cfg=cfg, _graphs=False),
+    }
 
-    def run():
+    def run(graphs: bool):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        _, infos = track_homography_ekf(state, xy[1:], desc[1:], valid[1:], intr=intr, cfg=cfg)
+        out = routes[graphs]()
         torch.cuda.synchronize()
-        return (time.perf_counter() - t1) * 1e3 / 40, infos
+        return (time.perf_counter() - t1) * 1e3, out
 
-    run()
-    wall, infos = run()
-    check(bool(infos.updated.all()), "5e frames: a frame rejected")
+    setup, first = run(True)
+    walls: dict = {True: [], False: []}
+    outs = {}
+    for graphs in (True, False, False, True):
+        wall, outs[graphs] = run(graphs)
+        walls[graphs].append(wall / 40)
+    (s_g, i_g), (s_e, i_e) = outs[True], outs[False]
+    check(_same(first, outs[True]), "5e frames: the graph route's replays differ from its first call")
+    check(_same(i_g, i_e) and _same(s_g, s_e), "5e frames: the graph and eager routes differ")
+    check(bool(i_g.updated.all()), "5e frames: a frame rejected")
+    for graphs in (True, False):
 
-    def traced():
-        with profiled() as prof:
-            run()
-        return device_kernels(prof)
+        def traced():
+            with profiled() as prof:
+                run(graphs)
+            return device_kernels(prof)
 
-    kernels = repeat_until_same(traced, lambda k: (len(k),))
-    check(kernels, "the profiler recorded no device time")
-    by_name: dict = {}
-    for name, us in kernels:
-        by_name[name] = by_name.get(name, 0.0) + us
-    device_ms = sum(by_name.values()) / 40 / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    print(
-        f"5e baseline frames 1-40 of 4b's sequence: wall {wall:.3f} ms a frame, device {device_ms:.4f} ms "
-        f"({len(kernels) / 40:.1f} kernels, busy {100 * device_ms / wall:.1f}%); largest: "
-        + "; ".join(f"{name[:60]} {us / 40 / 1e3:.4f} ms" for name, us in top)
-        + f" [{card}]"
-    )
+        kernels = repeat_until_same(traced, lambda k: (len(k),))
+        check(kernels, "the profiler recorded no device time")
+        by_name: dict = {}
+        for name, us in kernels:
+            by_name[name] = by_name.get(name, 0.0) + us
+        device_ms = sum(by_name.values()) / 40 / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+        wall = float(np.median(walls[graphs]))
+        print(
+            f"5e baseline frames 1-40 of 4b's sequence, {'graph' if graphs else 'eager'} route: wall {wall:.3f} ms a "
+            f"frame (passes {', '.join(f'{w:.3f}' for w in walls[graphs])}), device {device_ms:.4f} ms "
+            f"({len(kernels) / 40:.1f} kernels, busy {100 * device_ms / wall:.1f}%); largest: "
+            + "; ".join(f"{name[:60]} {us / 40 / 1e3:.4f} ms" for name, us in top)
+            + (f"; the first call (the eager frame, the capture, 39 replays) {setup:.3f} ms" if graphs else "")
+            + f"; infos and final carry bitwise between the routes [{card}]"
+        )
 
 
 def homography_phase(tmp: str, card: str) -> dict:
@@ -1948,17 +2049,14 @@ def main() -> int:
         print(frame_walls(torch.from_numpy(imgs_np).to(dev), cams, intr, card))
         return 0
 
-    # 3. kernels vs plain at main-path shapes
     w, h, frames = 1280, 720, 192
     imgs_np, cams, intr = render(frames, w, h)
     imgs = torch.from_numpy(imgs_np).to(dev)
-    kernels = kernel_phase(imgs[0], card)
-    kernels.append(matcher_phase(dev, card))
-    kernels.append(cholesky_phase(dev, card))
-    # 3e. the LK stage (kernel E)
-    kernels.append(lk_stage(dev, card))
-    # 3f. the descriptor stage (kernel F)
-    kernels.append(describe_stage(imgs, cams, intr, card))
+
+    # Every phase that times the graph route runs before the first profiler
+    # session (phases 3, 4f and the profiled passes of 4d and 5e, last): after
+    # one, a launch of a graph with conditional nodes makes the host wait for
+    # the card, which would swell those walls.
 
     # 4a. the first frames through the same code on the CPU (plain
     # versions) and on the card, in re-detect and in KLT mode: the
@@ -1976,10 +2074,9 @@ def main() -> int:
             f"first {n_ref} frames, {mode}, card vs CPU: max |d pan,tilt| {dpose[:, :2].max()} rad, "
             f"max |d f| {dpose[:, 2].max()} px"
         )
-
     # 4b. the main path, counted: each kernel as often as its call sites say;
-    # then a second pass of the sequence on the same PTZSlam (every program
-    # captured by the first: set-up apart from the steady state)
+    # then a second pass of the sequence on the same PTZSlam (its frame
+    # graph captured by the first: set-up apart from the steady state)
     from ptzjax_torch.config import SLAMConfig
     from ptzjax_torch.slam import PTZSlam
 
@@ -2021,7 +2118,10 @@ def main() -> int:
         check(pan_mae < 3e-3, f"{label}: pan MAE {pan_mae} >= 3e-3")
         check(inserts >= 1 and int(state_4b.kf.count) >= 2, f"{label}: no keyframe insert ran windowed BA")
     check(torch.equal(infos_4b.pose, infos.pose), "4b: the second pass's poses differ from the first's")
-    print(f"4b captures (capture + instantiation, pool growth): {describe_captures(captures(slam_4b))} [{card}]")
+    print(
+        f"4b set-up (the frame graph's captures, assembly and instantiation, pool growth): "
+        f"{describe_captures(captures(slam_4b))} [{card}]"
+    )
 
     # 4c. blackout, relocalization and recovery, in both reloc modes
     by_path = {"main": launches}
@@ -2029,18 +2129,13 @@ def main() -> int:
         by_path[f"blackout_{mode}"] = blackout_phase(imgs, cams, intr, mode, card)
     # 4e. the sequence in KLT mode, counted
     by_path["klt"] = klt_phase(imgs, cams, intr, card)
-    for k in kernels:
-        k["launches"] = (by_path["klt"] if k["name"] == "lk_track" else launches)[k["name"]]
 
-    # 4d. device time per frame kind (after the counted runs)
-    frame_phase(imgs, cams, intr, card)
-    by_path["klt_frames_40_79"] = mode_frame_phase(imgs, cams, intr, card, "KLT")
-    by_path["features_frames_40_79"] = mode_frame_phase(imgs, cams, intr, card, "features")
+    # 4d, the wall passes (their profiled passes come last)
+    walls_4d = frame_phase(imgs, cams, intr, card)
+    walls_klt, by_path["klt_frames_40_79"] = mode_frame_phase(imgs, cams, intr, card, "KLT")
+    walls_features, by_path["features_frames_40_79"] = mode_frame_phase(imgs, cams, intr, card, "features")
     # 4h. the graph route against the eager one, in every mode
     graph_phase(imgs, cams, intr, card)
-
-    # 4f. whole-map BA on the 4b state, and the BA bench problem
-    ba_phase(state, intr, dev, card)
 
     # 4g. checkpoint at frame 96 and resume: the 4b run again
     resume_phase(imgs, cams, intr, infos, card)
@@ -2054,11 +2149,31 @@ def main() -> int:
         by_path["cli_forest_blackout"] = forest_phase(imgs_np, cams, intr, tmp, card)
         module_phase(tmp, card)
         by_path["cli_homography"] = homography_phase(tmp, card)
-        homography_frame_phase(imgs, cams, intr, card)
         by_path["cli_offline"] = offline_phase(tmp, card)
     by_path["dist_one_rank_nccl"] = one_rank_nccl_phase(dev, card)
+
+
+    # 3. kernels vs plain at main-path shapes (the profiler from here on)
+    kernels = kernel_phase(imgs[0], card)
+    kernels.append(matcher_phase(dev, card))
+    kernels.append(cholesky_phase(dev, card))
+    # 3e. the LK stage (kernel E)
+    kernels.append(lk_stage(dev, card))
+    # 3f. the descriptor stage (kernel F)
+    kernels.append(describe_stage(imgs, cams, intr, card))
     for k in kernels:
+        k["launches"] = (by_path["klt"] if k["name"] == "lk_track" else launches)[k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items() if k["name"] in c}
+
+    # 4d, the profiled passes: device time and kernels per frame kind
+    frame_phase(imgs, cams, intr, card, walls_4d)
+    mode_frame_phase(imgs, cams, intr, card, "KLT", walls_klt)
+    mode_frame_phase(imgs, cams, intr, card, "features", walls_features)
+    # 4f. whole-map BA on the 4b state, and the BA bench problem
+    ba_phase(state, intr, dev, card)
+
+    # 5e. the baseline's frames on both routes, profiled
+    homography_frame_phase(imgs, cams, intr, card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

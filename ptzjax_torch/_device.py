@@ -33,6 +33,16 @@ def resolve(device=None, like=None) -> torch.device:
     return torch.device("cuda")
 
 
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """``x`` (an array or a tensor) on ``device``: from host memory to the
+    card through pinned memory and an asynchronous copy, so that the host
+    does not wait for the card."""
+    x = torch.as_tensor(x)
+    if device.type == "cuda" and x.device.type == "cpu":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device)
+
+
 @functools.lru_cache(maxsize=None)
 def const(values: tuple, device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """A read-only (len(values),) tensor on ``device``."""

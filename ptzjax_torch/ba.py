@@ -6,9 +6,10 @@ component-wise fast path that ``run`` iterates, and the Huber-IRLS
 
 Cameras are 3-vectors (pan, tilt, focal), rays 2-vectors; rays are
 eliminated with closed-form 2x2 inverses and the small dense (3K x 3K)
-reduced camera system is solved by Cholesky (``cholesky_ex`` +
-``cholesky_solve``; a failed factor becomes NaN, so the step is rejected as
-in the reference). The focal enters the parameters as f * focal_scale.
+reduced camera system is solved by Cholesky (``cholesky_ex`` + two
+triangular solves, ``kernels.cholesky.solve``; a failed factor becomes
+NaN, so the step is rejected as in the reference). The focal enters the
+parameters as f * focal_scale.
 
 Data layout is ray-major: an (M, C) table of observations per ray; the
 flat observation order is c-major (n = c * M + m). Each ray's blocks live in
@@ -28,6 +29,7 @@ import torch
 from ptzjax_torch import _device
 from ptzjax_torch.config import SLAMConfig
 from ptzjax_torch.geometry import ANGLE_CLIP, Intrinsics, project_jacobians, project_rays
+from ptzjax_torch.kernels.cholesky import solve
 
 
 class BAProblem(NamedTuple):
@@ -366,7 +368,7 @@ def _lm_iteration_fast(cams, rays, lam, prob: BAProblem, pre: BAPrecomp, intr, c
     s, rhs = schur_assemble(u, g_c, s_corr, rhs_corr, prob.cam_free, lam)
     chol, info = torch.linalg.cholesky_ex(s)
     chol = torch.where(info == 0, chol, torch.full_like(chol, float("nan")))
-    dc = torch.cholesky_solve(rhs[:, None], chol)[:, 0]
+    dc = solve(chol, rhs[:, None])[:, 0]
     dr = _fast_back_substitute(dc, pre, local)
     scale = _device.const((1.0, 1.0, 1.0 / fs), dc.device)
     new_cams = cams + dc.reshape(-1, 3) * scale * prob.cam_free[:, None]

@@ -11,8 +11,10 @@ to the previous estimate, so error integrates over time: the drift the
 keyframe map removes (``tests/test_torch_baselines.py``).
 
 The matcher is ``match.match_descriptors`` (ungated, mutual), kernel C on
-the card. The reference's ``lax.scan`` is a Python loop with no host read:
-the per-frame infos stay on the device and are stacked once at the end.
+the card. The reference's ``lax.scan`` is a loop with no host read: on the
+card each frame is the replay of one CUDA graph of ``_frame``
+(``_graphs.VOGraph``), on the CPU a Python loop; the per-frame infos stay
+on the device and are stacked once at the end.
 """
 
 from __future__ import annotations
@@ -114,9 +116,13 @@ def init_vo(pose0, xy0, desc0, valid0, cfg: SLAMConfig, device=None) -> VOState:
 
 def track_homography_ekf(
     state: VOState, xy_seq, desc_seq, valid_seq, *, intr: Intrinsics, cfg: SLAMConfig,
+    _graphs: bool = True,
 ) -> tuple[VOState, VOInfo]:
     """Run the baseline over a whole sequence, frame by frame, on the
-    device of ``state``.
+    device of ``state``. On the card every frame after the first is the
+    replay of one CUDA graph, captured at the call's first frame
+    (``_graphs.VOGraph``); ``_graphs=False`` asks for the eager loop there,
+    for parity checks and A/B timings. The results are bitwise the same.
 
     Args:
       xy_seq: (T, K, 2); desc_seq: (T, K, D); valid_seq: (T, K); numpy
@@ -126,9 +132,11 @@ def track_homography_ekf(
       (final carry, per-frame VOInfo stacked over T).
     """
     dev = state.cam.device
-    xy_seq, desc_seq, valid_seq = (
-        torch.as_tensor(v, device=dev) for v in (xy_seq, desc_seq, valid_seq)
-    )
+    xy_seq, desc_seq, valid_seq = (_device.to_device(v, dev) for v in (xy_seq, desc_seq, valid_seq))
+    if _graphs and dev.type == "cuda":
+        from ptzjax_torch._graphs import VOGraph
+
+        return VOGraph(state, cfg=cfg, intr=intr).run(state, xy_seq, desc_seq, valid_seq)
     infos = []
     for i in range(xy_seq.shape[0]):
         state, info = _frame(state, xy_seq[i], desc_seq[i], valid_seq[i], intr=intr, cfg=cfg)

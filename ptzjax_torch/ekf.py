@@ -14,8 +14,8 @@ inactive P blocks are kept at identity.
 
 The innovation matrix S is factored by ``kernels.cholesky.cholesky`` (the
 Hopper kernel on the card, ``torch.linalg.cholesky_ex`` on the CPU) and
-solved with ``torch.cholesky_solve``, in full fp32. The reference's blocked
-factor-and-invert
+solved by two triangular solves (``kernels.cholesky.solve``), in full
+fp32. The reference's blocked factor-and-invert
 (``_inv_chol`` / ``_inv_lower``) and its matmul precision tiers are TPU
 workarounds and are not ported. A non-PD innovation matrix does not raise:
 its factor is set to NaN, the NaN reaches the finiteness check and the
@@ -32,7 +32,7 @@ import torch
 from ptzjax_torch import _device
 from ptzjax_torch.config import SLAMConfig
 from ptzjax_torch.geometry import Intrinsics, back_project_pixels, project_jacobians
-from ptzjax_torch.kernels.cholesky import cholesky
+from ptzjax_torch.kernels.cholesky import cholesky, solve
 
 
 class EKFState(NamedTuple):
@@ -207,7 +207,7 @@ def update(
     # K = PHT S^-1 through the Cholesky factor of S
     chol, info = cholesky(s)
     chol = _nan_if_failed(chol, info)
-    k = torch.cholesky_solve(ph_t.T.contiguous(), chol).T  # (D, 2N)
+    k = solve(chol, ph_t.T.contiguous()).T  # (D, 2N)
 
     dx = k @ torch.cat([innov[:, 0], innov[:, 1]])
     cam = state.cam + dx[:6]

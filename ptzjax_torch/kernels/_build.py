@@ -22,7 +22,10 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("harris_nms.cu", "gather_windows.cu", "match.cu", "cholesky.cu", "lk_flow.cu", "describe.cu")
+SOURCES = (
+    "harris_nms.cu", "gather_windows.cu", "match.cu", "cholesky.cu", "lk_flow.cu", "describe.cu",
+    "graph_cond.cu",
+)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ptzjax_torch"
 # -fmad=false: no multiply-add contraction, so the detection kernel and the
 # matcher's gate round once per operation like the plain torch versions (see
@@ -111,6 +114,20 @@ def load() -> ctypes.CDLL:
         lib.ptz_lk_flow.restype = ci
         lib.ptz_describe.argtypes = [vp, ci, ci] + [vp] * 5 + [ci, ci, vp]
         lib.ptz_describe.restype = ci
+        ull = ctypes.c_ulonglong
+        for name, args in (
+            ("ptz_graph_create", [vpp]),
+            ("ptz_graph_handle", [vp, ctypes.POINTER(ull)]),
+            ("ptz_graph_add_set", [vp, vpp, ull, ull, ci, vp]),
+            ("ptz_graph_add_if", [vp, vpp, ull, vpp]),
+            ("ptz_graph_add_child", [vp, vpp, vp]),
+            ("ptz_graph_instantiate", [vp, vpp, cip, cip, ci]),
+            ("ptz_graph_launch", [vp, ci, vp]),
+            ("ptz_graph_destroy", [vp, vp]),
+            ("ptz_capture_status", [vp, cip]),
+        ):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = ci
         lib.ptz_smem_optin.argtypes = [ci]
         lib.ptz_smem_optin.restype = ci
         lib.ptz_error_string.argtypes = [ci]

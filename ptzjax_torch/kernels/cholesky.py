@@ -129,3 +129,14 @@ def cholesky(s: torch.Tensor):
     global launches
     launches += 1
     return factor, info
+
+
+def solve(factor: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x with L L^T x = b for the lower factor L = ``factor`` (n, n) and b
+    (n, k): ``torch.cholesky_solve(b, factor)`` as two triangular solves
+    (cuBLAS trsm on the card). ``torch.cholesky_solve`` goes through
+    cuSOLVER, whose own allocations a CUDA-graph capture records as memory
+    nodes, which the body of a conditional graph node refuses
+    (``_graphs.py``)."""
+    y = torch.linalg.solve_triangular(factor, b, upper=False)
+    return torch.linalg.solve_triangular(factor.mT, y, upper=True)

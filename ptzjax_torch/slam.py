@@ -8,15 +8,17 @@ re-match -> pan-tilt consensus -> joint EKF update -> slot lifecycle (retire,
 back-project fresh keypoints into free slots, allocate global ray ids) ->
 keyframe policy (insert + windowed BA) or, while lost, relocalization.
 
-The reference selects branches with ``lax.cond`` inside one ``lax.scan``;
-here the scan is a Python loop over frames and each ``lax.cond`` is a Python
-``if`` on a flag read from the device (see ``_frame_step``). All other
-decisions stay on the device as selects. On the card the tracking loops
-(re-detect, KLT and features: ``run_segment_pixels``,
-``run_segment_pixels_klt``, ``run_segment`` and ``step``) replay every
-frame kind from CUDA graphs (``_graphs.py``): a tracked frame up to its
-insert flag (``_track_step``), an insert (``_insert_step``) and a lost
-frame (``_relocalize_step``).
+The reference selects branches with ``lax.cond`` inside one ``lax.scan``.
+On the card the tracking loops (re-detect, KLT and features:
+``run_segment_pixels``, ``run_segment_pixels_klt``, ``run_segment`` and
+``step``) do the same: each frame is one launch of a CUDA graph whose
+conditional nodes pick the branch on the device (``_graphs.py``: the track
+step ``_track_step``, the insert ``_insert_step`` and the lost frame
+``_relocalize_step``), and a call reads the device once, at its end. The
+eager route (the CPU's, and the card's with ``PTZSlam(..., _graphs=False)``)
+is a Python loop over frames in which each ``lax.cond`` is a Python ``if``
+on a flag read from the device (see ``_frame_step``). All other decisions
+stay on the device as selects.
 """
 
 from __future__ import annotations
@@ -93,17 +95,17 @@ class PTZSlam:
         self.intr = intr
         self.device = _device.resolve(device)
         # On the card the tracking loops (run_segment_pixels,
-        # run_segment_pixels_klt, run_segment, step and so process) replay
-        # every frame kind from CUDA graphs (``_graphs.py``);
-        # ``_graphs=False`` asks for the eager route there, for the card's
-        # parity checks and A/B timings.
+        # run_segment_pixels_klt, run_segment, step and so process) launch
+        # one CUDA graph a frame, which picks the frame's branch on the
+        # device (``_graphs.py``); ``_graphs=False`` asks for the eager
+        # route there, for the card's parity checks and A/B timings.
         self._graphs = None
         if _graphs and self.device.type == "cuda":
             from ptzjax_torch._graphs import Runner
 
             self._graphs = Runner(self.device)
         # (weak reference to the ``lost`` tensor of the last state returned,
-        # its value): the next call's first frame takes the previous frame's
+        # its value): the eager route's next call takes the previous call's
         # read instead of reading the flag again
         self._lost_seen: tuple[weakref.ref, bool] | None = None
 
@@ -139,22 +141,19 @@ class PTZSlam:
         return self._returned(_bootstrap(state, xy, desc, valid, cfg=cfg, intr=self.intr), False)
 
     def step(self, state: SlamState, xy, desc, valid) -> tuple[SlamState, FrameInfo]:
-        """One frame from features. On the card each frame kind is the
-        replay of a CUDA graph, as in ``run_segment``."""
-        lost = self._lost_of(state)
+        """One frame from features. On the card the frame is one launch of
+        the frame graph, as in ``run_segment``."""
         if self._graphs is not None:
-            state, info, lost = self._graphs.step(
-                state, xy, desc, valid, cfg=self.cfg, intr=self.intr, lost=lost
-            )
+            state, info, lost = self._graphs.step(state, xy, desc, valid, cfg=self.cfg, intr=self.intr)
         else:
-            state, info, lost = _frame_step(state, xy, desc, valid, cfg=self.cfg, intr=self.intr, lost=lost)
+            state, info, lost = _frame_step(
+                state, xy, desc, valid, cfg=self.cfg, intr=self.intr, lost=self._lost_of(state)
+            )
         return self._returned(state, lost), info
 
     def process(self, state: SlamState, xy, desc, valid) -> tuple[SlamState, dict[str, Any]]:
         """One frame from features (tensors or arrays) + its host info dict."""
-        state, finfo = self.step(
-            state, *(torch.as_tensor(v, device=self.device) for v in (xy, desc, valid))
-        )
+        state, finfo = self.step(state, *(_device.to_device(v, self.device) for v in (xy, desc, valid)))
         return state, info_to_dict(finfo)
 
     def run_segment(
@@ -164,21 +163,23 @@ class PTZSlam:
         valid (T, Q). ``frame_ok`` (T,) marks real frames (a False frame
         passes the state through).
 
-        On the card each tracked frame is the replay of one CUDA graph (the
-        track step and keyframe predicates on the frame's features, copied
-        in) and one read of its flags; an insert and a lost frame replay
-        graphs of their own (``_graphs.Runner``). The results are bitwise
+        On the card each frame is one launch of the frame graph
+        (``_graphs.Runner``: the frame's features copied in; the track
+        step, the insert and the relocalization picked on the device), and
+        the call reads the device once, at its end. The results are bitwise
         the eager route's.
 
         Returns the final state and the FrameInfo fields stacked over T."""
-        xy_seq, desc_seq, valid_seq = (
-            torch.as_tensor(v, device=self.device) for v in (xy_seq, desc_seq, valid_seq)
-        )
-        lost = self._lost_of(state)
-        run = self._graphs.run_segment if self._graphs is not None else _run_segment
-        state, infos, lost = run(
-            state, xy_seq, desc_seq, valid_seq, frame_ok, cfg=self.cfg, intr=self.intr, lost=lost
-        )
+        xy_seq, desc_seq, valid_seq = (_device.to_device(v, self.device) for v in (xy_seq, desc_seq, valid_seq))
+        if self._graphs is not None:
+            state, infos, lost = self._graphs.run_segment(
+                state, xy_seq, desc_seq, valid_seq, frame_ok, cfg=self.cfg, intr=self.intr
+            )
+        else:
+            state, infos, lost = _run_segment(
+                state, xy_seq, desc_seq, valid_seq, frame_ok, cfg=self.cfg, intr=self.intr,
+                lost=self._lost_of(state),
+            )
         return self._returned(state, lost), infos
 
     def run_segment_pixels(
@@ -186,25 +187,26 @@ class PTZSlam:
     ) -> tuple[SlamState, FrameInfo]:
         """From-pixels chunk: frames (T, H, W) -> detect/describe -> SLAM step,
         frame by frame. ``imgs`` and ``masks`` (T, H, W) bool or None may be
-        numpy arrays or tensors on any device: each frame moves to the
-        device when its turn comes. ``frame_ok`` (T,) marks real frames (a
-        False frame passes the state through).
+        numpy arrays or tensors on any device: on the card's graph route the
+        chunk moves to the device in one asynchronous copy at the start, on
+        the eager route each frame when its turn comes. ``frame_ok`` (T,)
+        marks real frames (a False frame passes the state through).
 
-        On the card each tracked frame is the replay of one CUDA graph
-        (frontend, track step and keyframe predicates) and one read of its
-        flags; an insert and a lost frame replay graphs of their own
-        (``_graphs.Runner``). The results are bitwise the eager route's.
+        On the card each frame is one launch of the frame graph
+        (``_graphs.Runner``: the frontend and the track step, the insert
+        and the relocalization picked on the device), and the call reads
+        the device once, at its end. The results are bitwise the eager
+        route's.
 
         Returns the final state and the FrameInfo fields stacked over T."""
-        lost = self._lost_of(state)
         if self._graphs is not None:
             state, infos, lost = self._graphs.run_segment_pixels(
-                state, imgs, masks, frame_ok, cfg=self.cfg, intr=self.intr, lost=lost
+                state, imgs, masks, frame_ok, cfg=self.cfg, intr=self.intr
             )
         else:
             state, infos, lost = _run_segment_pixels(
                 state, imgs, masks, frame_ok, cfg=self.cfg, intr=self.intr, device=self.device,
-                lost=lost,
+                lost=self._lost_of(state),
             )
         return self._returned(state, lost), infos
 
@@ -220,24 +222,22 @@ class PTZSlam:
         the state and the carry through). Inputs move to the device as in
         ``run_segment_pixels``.
 
-        On the card each tracked frame is the replay of one CUDA graph (the
-        KLT frontend on the carry, the track step and keyframe predicates,
-        and the carry moved on) and one read of its flags; an insert and a
-        lost frame replay graphs of their own (``_graphs.Runner``). The
-        results are bitwise the eager route's.
+        On the card each frame is one launch of the frame graph
+        (``_graphs.Runner``: the KLT frontend on the carry, the track step,
+        the insert and the relocalization picked on the device, and the
+        carry moved on), and the call reads the device once, at its end.
+        The results are bitwise the eager route's.
 
         Returns (state, infos stacked over T, last_xy, last_valid): the
         table of the last real frame, to seed the next chunk."""
-        lost = self._lost_of(state)
         if self._graphs is not None:
             state, infos, xy, valid, lost = self._graphs.run_segment_pixels_klt(
-                state, imgs, frame_ok, prev_img, prev_xy, prev_valid, masks,
-                cfg=self.cfg, intr=self.intr, lost=lost,
+                state, imgs, frame_ok, prev_img, prev_xy, prev_valid, masks, cfg=self.cfg, intr=self.intr,
             )
         else:
             state, infos, xy, valid, lost = _run_segment_pixels_klt(
                 state, imgs, frame_ok, prev_img, prev_xy, prev_valid, masks,
-                cfg=self.cfg, intr=self.intr, device=self.device, lost=lost,
+                cfg=self.cfg, intr=self.intr, device=self.device, lost=self._lost_of(state),
             )
         return self._returned(state, lost), infos, xy, valid
 
@@ -549,7 +549,7 @@ def _relocalize_step(state: SlamState, xy, desc, valid, *, cfg, intr):
     and the stay-lost step, selected on the device by the success flag
     (selects of values both branches computed: bitwise ``_relocalize``).
     On the card ``_graphs`` captures it, with the frame's frontend, as the
-    lost frame's CUDA graph. Returns (state, info, success as a () bool
+    frame graph's lost branch. Returns (state, info, success as a () bool
     tensor)."""
     res = _reloc_match(state, xy, desc, valid, cfg=cfg, intr=intr)
     kept = _stay_lost(state)
@@ -648,11 +648,13 @@ def _track_step(state: SlamState, xy, desc, valid, *, cfg, intr):
     and the keyframe policy's predicates (overlap, zoom, cadence) -- the
     reference's ``do_track`` branch up to its insert ``lax.cond``
     (``ptzjax/slam.py:_frame_step``). On the card ``_graphs`` captures it,
-    with the frame's frontend (none in features mode), as one CUDA graph.
+    with the frame's frontend (none in features mode), as the frame graph's
+    track branch.
 
     Returns (state, info with ``keyframe`` = the insert predicate, flags):
-    ``flags`` is one (2,) bool tensor, (lost, insert), the only thing the
-    host reads of the frame."""
+    ``flags`` is one (2,) bool tensor, (lost, insert): what the eager route
+    reads of the frame, and what the frame graph's insert conditions are
+    made from."""
     s2, info = _track_frame(state, xy, desc, valid, cfg=cfg, intr=intr)
     healthy = ~info.lost
     insert = healthy & (info.max_kf_overlap < cfg.keyframe_overlap)
@@ -683,7 +685,7 @@ def _insert_step(state: SlamState, xy, desc, valid, *, cfg, intr, ba: bool) -> S
     """The insert branch for one value of its BA predicate (``ba``, from
     ``_ba_follows``), with no host read: ``_insert_keyframe``, then
     ``_windowed_ba`` where ``ba``. On the card ``_graphs`` captures it as
-    the insert frame's CUDA graph, one for each value of ``ba``."""
+    the frame graph's insert branch, one for each value of ``ba``."""
     state = _insert_keyframe(state, xy, desc, valid, cfg=cfg, intr=intr)
     return _windowed_ba(state, cfg=cfg, intr=intr) if ba else state
 

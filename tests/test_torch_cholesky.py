@@ -131,3 +131,21 @@ def test_plan_keeps_the_rows_in_shared_memory_up_to_n_512(n, smem):
     else:
         assert p.smem_bytes == 0 and p.work_floats == p.blocks * tch.PANEL * tch.PANEL
     assert not tch.plan(512, smem_optin=100_000).smem
+
+
+@pytest.mark.parametrize("n, k", [(24, 1), (64, 70), (512, 518)])
+def test_solve_is_the_cholesky_solve(n, k):
+    """``solve`` (two triangular solves, the EKF's gain and the BA's step)
+    against ``torch.cholesky_solve`` and a float64 solve, at the EKF's
+    shape (S 512 x 512, 518 right-hand sides) and the windowed BA's (24, one
+    right-hand side): within 1e-5 relative to the float64 solution, where
+    ``cholesky_solve`` lands; a NaN factor gives NaN."""
+    s = _spd(n, seed=n)
+    b = np.random.default_rng(k).normal(size=(n, k)).astype(np.float32)
+    factor = torch.linalg.cholesky(t(s))
+    got = host(tch.solve(factor, t(b)))
+    want = np.linalg.solve(s.astype(np.float64), b.astype(np.float64))
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() <= 1e-5 * scale
+    assert np.abs(host(torch.cholesky_solve(t(b), factor)) - want).max() <= 1e-5 * scale
+    assert torch.isnan(tch.solve(torch.full_like(factor, float("nan")), t(b))).all()

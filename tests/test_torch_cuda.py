@@ -857,9 +857,9 @@ def test_graph_route_keeps_the_callers_state_and_replays_a_rewound_one(cuda_devi
 
 
 def test_graph_replays_credit_the_counters_and_read_the_card_once(cuda_device):
-    """Each replay adds one launch of A, C, D and F (and a masked A) to the
-    counters, the capture none; a tracked frame waits for the card once
-    (sync debug mode), at the flag read."""
+    """Each frame adds one launch of A, C, D and F (and a masked A) to the
+    counters, the warm-up and the capture none; a call of one tracked frame
+    waits for the card once (sync debug mode), at the call's read."""
     import warnings
 
     imgs, cams, intr = _render(30)
@@ -970,7 +970,7 @@ def test_klt_and_features_graph_routes_are_the_eager_route_bitwise(cuda_device, 
     staged), through the graph route and through the eager route
     (``_graphs=False``): every FrameInfo, the final state and the KLT carry
     bitwise equal, the same launches, one graph of the kind captured, and
-    one host wait a tracked frame on the graph route."""
+    one host wait a call (of one tracked frame) on the graph route."""
     imgs, cams, intr = _bench_frames(80)
     frames = torch.from_numpy(imgs).to(cuda_device)
     masks = None
@@ -1102,9 +1102,9 @@ def test_graph_route_insert_and_lost_programs_are_the_eager_route_bitwise(cuda_d
     both reloc modes and with a mask: the graph route's FrameInfos, final
     state and KLT carry are bitwise the eager route's, and both launch
     what the call sites give. The same ``PTZSlam`` then runs 100-160 again
-    from its kept state at 99, every program captured by then: bitwise
-    again, and from frame 101 the host waits 2 times on an insert frame,
-    once on a lost frame and once on a tracked frame."""
+    from its kept state at 99, its frame graph captured by then: bitwise
+    again, and from frame 101 the host waits once a call, on an insert, a
+    lost and a tracked frame alike."""
     imgs, cams, intr = _blackout_bench_frames()
     frames = torch.from_numpy(imgs).to(cuda_device)
     masks = None
@@ -1160,19 +1160,102 @@ def test_graph_route_insert_and_lost_programs_are_the_eager_route_bitwise(cuda_d
     keyframe = torch.cat([i.keyframe for i in i_e]).cpu().numpy()
     assert keyframe[20] and (event == 1).sum() >= 2 and torch.cat([i.reloc_success for i in i_e]).any()
     (g,) = slam_g._graphs.graphs.values()
-    assert all(g.programs[p].replay is not None for p in ("track", "insert+ba", "lost"))
+    assert g.program.replay is not None and g.counts["insert+ba"] == 1 and g.counts["lost"] >= 2
     waits = []
     s_2, i_2, c_2 = window(slam_g, *kept, waits=waits)
     assert all(_bitwise(a, b) for a, b in zip(i_2, i_e)) and _bitwise(s_2, s_e)
     assert all(torch.equal(a, b) for a, b in zip(c_2, c_e))
-    want = [2 if k else 1 for k in keyframe[1:]]
+    want = [1] * len(keyframe[1:])
     assert waits == want, [(101 + f, w, x) for f, (w, x) in enumerate(zip(waits, want)) if w != x]
 
 
+@pytest.mark.parametrize(
+    "kind, mode, masked",
+    [("redetect", "map", False), ("redetect", "keyframe", False), ("redetect", "map", True),
+     ("klt", "map", False), ("klt", "keyframe", False), ("klt", "map", True),
+     ("features", "map", False), ("features", "keyframe", False)],
+)
+def test_one_call_segment_over_the_window_is_the_eager_route_bitwise(cuda_device, kind, mode, masked):
+    """``bench.py``'s 720p sequence with the 140-146 blackout: frames 1-99
+    in one call, then 100-160 (the cadence insert at 120, the lost frames
+    and the recovery) in one call, in re-detect, KLT and features mode,
+    both reloc modes and with a mask: the graph route's FrameInfos, final
+    state and KLT carry are bitwise the eager route's (the same calls),
+    both launch what the call sites give, the frame graph took each branch
+    as often as the infos say, and the window's call waits for the card
+    once (sync debug mode)."""
+    imgs, cams, intr = _blackout_bench_frames()
+    frames = torch.from_numpy(imgs).to(cuda_device)
+    masks = None
+    if masked:
+        masks = torch.ones(frames.shape, dtype=torch.bool, device=cuda_device)
+        masks[:, 100:300, 200:400] = False
+        masks[:, 450:700, 900:1200] = False
+    cfg = SLAMConfig(reloc_mode=mode)
+    feats = None
+    if kind == "features":
+        staged = [extract_features(frames[k], cfg) for k in range(frames.shape[0])]
+        feats = tuple(torch.stack([f[i] for f in staged]) for i in range(3))
+
+    def call(slam, state, carry, a, b):
+        m = None if masks is None else masks[a:b]
+        if kind == "redetect":
+            return (*slam.run_segment_pixels(state, frames[a:b], m), carry)
+        if kind == "klt":
+            state, info, xy, valid = slam.run_segment_pixels_klt(state, frames[a:b], frames[a - 1], *carry, masks=m)
+            return state, info, (xy, valid)
+        return (*slam.run_segment(state, *(v[a:b] for v in feats)), carry)
+
+    out = {}
+    for graphs in (True, False):
+        slam = PTZSlam(cfg, intr, _graphs=graphs)
+        first = (v[0] for v in feats) if feats else extract_features(frames[0], slam.cfg, mask=None if masks is None else masks[0])
+        xy0, desc0, valid0 = first
+        state = slam.init(xy0, desc0, valid0, cams[0])
+        state, _, carry = call(slam, state, (xy0, valid0), 1, 100)
+        before = _counts()
+        result = []
+        waits = _waits(lambda: result.extend(call(slam, state, carry, 100, 161)))
+        out[graphs] = (*result, tuple(a - b for a, b in zip(_counts(), before)), waits, slam)
+    (s_g, i_g, c_g, n_g, w_g, slam_g), (s_e, i_e, c_e, n_e, _, _) = out[True], out[False]
+    assert _bitwise(i_g, i_e) and _bitwise(s_g, s_e)
+    assert all(torch.equal(a, b) for a, b in zip(c_g, c_e))
+    assert n_g == n_e == _window_expected([i_e], kind, masked)
+    event, keyframe = i_e.event.cpu().numpy(), i_e.keyframe.cpu().numpy()
+    assert keyframe[20] and (event == 1).sum() >= 2 and bool(i_e.reloc_success.any())
+    (g,) = slam_g._graphs.graphs.values()
+    taken = dict(zip(("lost", "track", "insert+ba", "insert"), g.taken.tolist()))
+    assert taken == {"lost": int((event == 1).sum()), "track": int((event == 0).sum()), "insert+ba": 1, "insert": 0}
+    assert w_g == 1
+
+
+def test_baseline_graph_route_is_the_eager_route_bitwise(cuda_device):
+    """``track_homography_ekf`` on the 640x360 sequence's features, frames
+    1-29 in one call: the graph route (the first frame eager, the rest
+    replays of one graph) gives bitwise the eager route's infos and final
+    carry, and launches C once a frame on both."""
+    from ptzjax_torch import baselines as tbase
+
+    imgs, cams, intr = _render(30)
+    cfg = _small_cfg()
+    frames = torch.from_numpy(imgs).to(cuda_device)
+    staged = [extract_features(frames[k], cfg) for k in range(30)]
+    xy, desc, valid = (torch.stack([f[i] for f in staged]) for i in range(3))
+    out = {}
+    for graphs in (True, False):
+        state = tbase.init_vo(cams[0], xy[0], desc[0], valid[0], cfg)
+        before = tkm.launches
+        out[graphs] = (*tbase.track_homography_ekf(state, xy[1:], desc[1:], valid[1:], intr=intr, cfg=cfg, _graphs=graphs),
+                       tkm.launches - before)
+    (s_g, i_g, n_g), (s_e, i_e, n_e) = out[True], out[False]
+    assert _bitwise(i_g, i_e) and _bitwise(s_g, s_e) and n_g == n_e == 29
+    assert bool(i_g.updated.all())
+
+
 def test_host_read_in_the_insert_program_makes_its_capture_raise(cuda_device, monkeypatch):
-    """A host read put inside the insert branch: the tracked frames replay,
-    the insert's first use (eager) runs, its capture raises, and so does the
-    next insert; nothing falls back to the eager route."""
+    """A host read put inside the insert branch: the frame graph's warm-up
+    (eager) runs, the capture of its insert branch raises naming it, and so
+    does the next call; nothing falls back to the eager route."""
     from ptzjax_torch import slam as tslam
 
     imgs, cams, intr = _render(30)
@@ -1188,19 +1271,18 @@ def test_host_read_in_the_insert_program_makes_its_capture_raise(cuda_device, mo
         return out
 
     monkeypatch.setattr(tslam, "_insert_step", reading_step)
-    with pytest.raises(RuntimeError):
-        slam.run_segment_pixels(state, frames[1:12])
-    with pytest.raises(RuntimeError):
-        slam.run_segment_pixels(state, frames[1:12])
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="the frame graph's 'insert\\+ba' branch failed"):
+            slam.run_segment_pixels(state, frames[1:12])
     (g,) = slam._graphs.graphs.values()
-    assert g.programs["track"].replay is not None
-    assert g.programs["insert+ba"].replay is None and g.programs["insert"].replay is None
+    assert g.program.replay is None
 
 
 def test_host_read_in_the_captured_step_makes_the_capture_raise(cuda_device, monkeypatch):
-    """A host read put inside the step: the first frame (eager) runs, the
-    capture raises, and so does the next call; nothing falls back to the
-    eager route. Last in the file: it leaves a failed capture behind."""
+    """A host read put inside the step: the frame graph's warm-up (eager)
+    runs, the capture of its track branch raises naming it, and so does the
+    next call; nothing falls back to the eager route. Last in the file: it
+    leaves a failed capture behind."""
     from ptzjax_torch import slam as tslam
 
     imgs, cams, intr = _render(30)
@@ -1216,8 +1298,7 @@ def test_host_read_in_the_captured_step_makes_the_capture_raise(cuda_device, mon
         return out
 
     monkeypatch.setattr(tslam, "_track_step", reading_step)
-    with pytest.raises(RuntimeError):
-        slam.run_segment_pixels(state, frames[1:3])
-    with pytest.raises(RuntimeError):
-        slam.run_segment_pixels(state, frames[1:3])
-    assert all(p.replay is None for g in slam._graphs.graphs.values() for p in g.programs.values())
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="the frame graph's 'track' branch failed"):
+            slam.run_segment_pixels(state, frames[1:3])
+    assert all(g.program.replay is None for g in slam._graphs.graphs.values())

@@ -4,9 +4,9 @@ on a 24-frame sequence with two keyframe inserts (frames 8 and 17) and a
 blackout (frames 14-15: lost, relocalized at 16).
 
 The capture itself needs the card (``tests/test_torch_cuda.py``); here the
-graph loop runs with its programs' first uses and replays done eagerly,
-which checks everything around the capture: the state buffers, the
-write-back, the insert and lost programs, the skipped frames and the
+graph loop runs its frame program eagerly, the conditions read on the
+host, which checks everything around the capture: the state buffers, the
+write-back, the insert and lost branches, the skipped frames and the
 returned state.
 """
 
@@ -15,7 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
 
 from ptzjax import synth
 from ptzjax.config import SLAMConfig
@@ -282,11 +282,36 @@ def test_split_route_holds_against_reference_frame_step(seq, mode):
 # the graph loop around the capture ------------------------------------------
 
 
+def host_cond(pred, then, otherwise=None) -> None:
+    """The frame program's ``cond`` on the CPU: ``pred`` read on the host
+    outside every dispatch mode (so that ``NoHostRead`` and the read counts
+    see only the program's own reads), and ``then`` or ``otherwise`` run."""
+    with _disable_current_modes():
+        holds = bool(pred)
+    if holds:
+        then()
+    elif otherwise is not None:
+        otherwise()
+
+
 @pytest.fixture
 def eager_replays(monkeypatch):
-    """Every ``TrackGraph`` program's first use and replays ("track",
-    "insert", "insert+ba", "lost") done eagerly on the CPU: the same work,
-    without a capture. Each program counts its replays in ``replays``."""
+    """Every capture replaced by eager replays on the CPU: the same work,
+    without a capture. A ``TrackGraph``'s frame program keeps its warm-up
+    (every branch on a copy of the buffers, put back) and each launch runs
+    ``TrackGraph._frame`` with ``host_cond``; a ``Program`` (the baseline's)
+    runs its first use and replays eagerly. Each counts its replays in
+    ``replays``."""
+
+    def capture(self, owner):
+        self.replays = 0
+        self.rise = {name: (0,) * len(_graphs.COUNTERS) for name in _graphs.BRANCHES}
+
+        def replay():
+            owner._frame(host_cond, owner._branch)
+            self.replays += 1
+
+        self.replay = replay
 
     def first_use(self, owner):
         out = self.fn(owner)
@@ -300,6 +325,7 @@ def eager_replays(monkeypatch):
         self._rise = (0,) * len(_graphs.COUNTERS)
         return out
 
+    monkeypatch.setattr(_graphs.FrameProgram, "capture", capture)
     monkeypatch.setattr(_graphs.Program, "first_use", first_use)
 
 

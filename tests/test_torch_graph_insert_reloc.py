@@ -1,16 +1,16 @@
-"""The insert and lost programs of the CUDA-graph loops
-(``ptzjax_torch/_graphs.py``: ``TrackGraph.programs`` "insert",
+"""The insert and lost branches of the CUDA-graph loops' frame program
+(``ptzjax_torch/_graphs.py``: ``TrackGraph._branch`` "insert",
 "insert+ba" and "lost"; ``slam._insert_step`` and
 ``slam._relocalize_step``) on the CPU, on ``test_torch_graph.py``'s 24-frame
 320 x 180 sequence: inserts at 8 and 17, a blackout at 14-15 (lost, frame
 15 fails to relocalize, 16 recovers; in keyframe mode the KLT loop recovers
 at 17 and inserts at 18).
 
-The capture itself needs the card (``tests/test_torch_cuda.py``); here every
-program's first use and replays run eagerly (``eager_replays``), which
-checks everything around the capture: what each program would capture
-makes no host read, its write-back, the loop's host reads a frame, and the
-results bitwise the eager route's and close to the reference's.
+The capture itself needs the card (``tests/test_torch_cuda.py``); here the
+frame program runs eagerly (``eager_replays``), which checks everything
+around the capture: what each branch would capture makes no host read,
+its write-back, the branches taken, and the results bitwise the eager
+route's and close to the reference's.
 """
 
 import jax
@@ -18,8 +18,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-
 from ptzjax.frontend import extract_features as j_extract
 from ptzjax.slam import PTZSlam as JaxSlam
 from ptzjax_torch import _graphs
@@ -198,7 +196,7 @@ def test_lost_program_makes_no_host_read(seq, feats, kind, mode, masked):
         assert all(torch.equal(a, b) for a, b in zip(g.carry[1:], loop.carry))
 
 
-# (b) the graph loops are the eager route, bitwise, and replay both programs -----
+# (b) the graph loops are the eager route, bitwise, and take every branch ------
 
 
 CALLS = ((1, 2), (2, 9), (9, 10), (10, 16), (16, 17), (17, FRAMES))
@@ -213,10 +211,10 @@ CALLS = ((1, 2), (2, 9), (9, 10), (10, 16), (16, 17), (17, FRAMES))
 def test_graph_loop_replays_insert_and_lost_programs_bitwise(seq, feats, eager_replays, kind, mode, cfg):
     """Over the whole sequence, in calls of one frame and of several, the
     graph loop gives bitwise the eager route's states, infos and KLT carry,
-    and the insert and lost programs ran from their replays: the insert
-    with BA ("insert"  where ``online_ba_iters`` = 0) at its first use on
-    frame 8 and replayed at the second insert, the lost program at its
-    first use on frame 15 and replayed on the next lost frame."""
+    and every frame ran from the frame program's replays, which took each
+    branch where the eager route did: the insert with BA ("insert" where
+    ``online_ba_iters`` = 0) on frames 8 and 17, the lost branch on the
+    relocalization frames, the track branch on the others."""
     runs = {}
     for graphs in (True, False):
         loop = Loop(seq, feats, kind, mode, graphs, **cfg)
@@ -224,11 +222,13 @@ def test_graph_loop_replays_insert_and_lost_programs_bitwise(seq, feats, eager_r
     (i_g, g_loop), (i_e, e_loop) = runs[True], runs[False]
     assert _same(i_g, i_e) and _same(g_loop.state, e_loop.state)
     assert all(torch.equal(a, b) for a, b in zip(g_loop.carry, e_loop.carry))
-    programs = g_loop.graph().programs
+    g = g_loop.graph()
     insert = "insert+ba" if not cfg else "insert"
-    assert n(i_e.keyframe).sum() == 2 and programs[insert].replays == 1
-    assert programs[{"insert": "insert+ba", "insert+ba": "insert"}[insert]].replay is None
-    assert n(i_e.reloc_success).any() and programs["lost"].replays == int((n(i_e.event) == 1).sum()) - 1 >= 1
+    event = n(i_e.event)
+    assert n(i_e.keyframe).sum() == 2 and g.counts[insert] == 2
+    assert g.counts[{"insert": "insert+ba", "insert+ba": "insert"}[insert]] == 0
+    assert n(i_e.reloc_success).any() and g.counts["lost"] == int((event == 1).sum()) >= 2
+    assert g.counts["track"] == int((event == 0).sum()) and g.program.replays == FRAMES - 1
 
 
 # (c) the insert's tail writes back every field the branch changes -----------------
@@ -295,8 +295,7 @@ def test_graph_insert_and_reloc_frames_hold_against_the_reference(seq, eager_rep
     dpose = np.abs(np.stack([n(i.pose) for i in got[1:]]) - np.stack([np.asarray(i.pose) for i in ref[1:]]))
     assert dpose[:, :2].max() < 5e-4 and dpose[:, 2].max() < 2.0, dpose.max(0)
     (g,) = slam._graphs.graphs.values()
-    programs = g.programs
-    assert programs["insert+ba"].replays == 1 and programs["lost"].replays >= 1
+    assert g.counts["insert+ba"] == 2 and g.counts["lost"] >= 2
 
 
 # (e) a rewound state replays the same through an insert and a lost frame ---------
@@ -306,8 +305,8 @@ def test_graph_insert_and_reloc_frames_hold_against_the_reference(seq, eager_rep
 def test_rewound_state_replays_the_same_through_insert_and_lost_frames(seq, feats, eager_replays, kind):
     """The forest's rewind: a state (and carry) kept from frame 7, run again
     through frames 7-18 (both inserts, the blackout and the recovery) on
-    the same graphs, whose programs are all captured by then, gives bitwise
-    the first run's result."""
+    the same graphs, whose frame program is captured by then, gives
+    bitwise the first run's result."""
     loop = Loop(seq, feats, kind, "map", graphs=True)
     loop.run(1, 7)
     mid = loop.state, list(loop.carry)
@@ -316,46 +315,5 @@ def test_rewound_state_replays_the_same_through_insert_and_lost_frames(seq, feat
     again = loop.run(7, 19), loop.state, list(loop.carry)
     assert _same(first[0], again[0]) and _same(first[1], again[1])
     assert all(torch.equal(a, b) for a, b in zip(first[2], again[2]))
-    programs = loop.graph().programs
-    assert programs["insert+ba"].replays >= 2 and programs["lost"].replays >= 2
-
-
-# (f) host reads a frame -----------------------------------------------------------
-
-
-class Reads(TorchDispatchMode):
-    """Counts the host's reads of tensor values: ``bool()``, ``int()`` and
-    ``float()`` of a tensor (``aten._local_scalar_dense``) and
-    ``Tensor.tolist`` (counted by ``_counting_tolist``)."""
-
-    count = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        Reads.count += str(func).startswith("aten._local_scalar_dense")
-        return func(*args, **(kwargs or {}))
-
-
-@pytest.mark.parametrize("kind", ["redetect", "klt", "features"])
-def test_host_reads_a_frame_on_the_graph_loop(seq, feats, eager_replays, monkeypatch, kind):
-    """One frame a call on the graph loop: a tracked frame reads its flags
-    once, an insert frame twice (the flags, with the BA predicate among
-    them, and the lost flag after the BA), a lost frame once (its success
-    flag)."""
-    tolist = torch.Tensor.tolist
-
-    def counting_tolist(self):
-        Reads.count += 1
-        return tolist(self)
-
-    monkeypatch.setattr(torch.Tensor, "tolist", counting_tolist)
-    loop = Loop(seq, feats, kind, "map", graphs=True)
-    loop.run(1, 2)
-    reads = {}
-    for k in range(2, RECOVERED + 4):
-        Reads.count = 0
-        with Reads():
-            info = loop.run(k, k + 1)
-        reads[k] = Reads.count, int(info.event[0]) + 2 * int(info.keyframe[0])
-    assert {k: r for k, (r, e) in reads.items() if e == 2} == {k: 2 for k in INSERTS}
-    assert {k: r for k, (r, e) in reads.items() if e == 1} == {LOST: 1, RECOVERED: 1}
-    assert all(r == 1 for r, e in reads.values() if e == 0)
+    counts = loop.graph().counts
+    assert counts["insert+ba"] >= 4 and counts["lost"] >= 4

@@ -5,10 +5,10 @@ keyframe inserts (frames 8 and 17), a blackout (frames 14-15: lost,
 relocalized at 16 in map mode, 17 in keyframe mode).
 
 The capture itself needs the card (``tests/test_torch_cuda.py``); here the
-graph loops run with their programs' first uses and replays done eagerly
-(``eager_replays``), which checks everything around the capture: the state
-and carry buffers, the write-back and the carry's tail, the insert and lost
-programs, the skipped frames and the returned state and carry.
+graph loops run their frame program eagerly (``eager_replays``), which
+checks everything around the capture: the state and carry buffers, the
+write-back and the carry's tail, the insert and lost branches, the skipped
+frames and the returned state and carry.
 """
 
 import jax
@@ -98,7 +98,7 @@ def _klt_run(seq, mode, masked, graphs):
 @pytest.mark.parametrize("mode", ["map", "keyframe"])
 def test_klt_graph_loop_matches_the_eager_route(seq, eager_replays, mode, masked):
     """The KLT graph loop (tracked frames through the state and carry
-    buffers, insert and lost programs, a skipped frame) gives
+    buffers, insert and lost branches, a skipped frame) gives
     bitwise the eager route's states, infos and returned carry, over calls
     of one frame and of several, and leaves the caller's state and carry as
     they were."""
