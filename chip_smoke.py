@@ -44,17 +44,20 @@ traced with inflated times, or not at all).
    larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32) and
    the share of it reached, and for D the time of ``torch.linalg.cholesky_ex``;
    (e) the LK stage: ``lk_track`` at the LK bench shape (a 720p pair, 512
-   keypoints, 4 levels, the backward check) through kernel E (one launch
-   a call, no window gather) against the plain route on the card and
-   against the CPU (``tracked`` equal, ``xy`` within 1e-3 px on tracked
-   rows); E alone on the call's pyramids beside the plain route (event and
-   device time, bound, share); the whole call's device time, kernels a
-   call and event time; (f) the descriptor stage: ``describe_keypoints`` on
+   keypoints, 4 levels, the backward check) through kernel E (a pyramid
+   launch and an LK launch a call, no window gather) against the plain
+   route on the card and against the CPU (``tracked`` equal, ``xy`` within
+   1e-3 px on tracked rows), the pyramid launch's levels bitwise the plain
+   pyramids'; each launch alone beside its plain version (event and device
+   time, bound, share); the whole call's device time, kernels a call (2:
+   no torch kernel) and event time; (f) the descriptor stage: ``describe_keypoints`` on
    frame 1 of the sequence at 512 detected keypoints (the last 4 rows made
    invalid, one of them NaN) through kernel F (one launch and no window
    gather a call) against the plain route on the card (B's windows and
    torch), at 4b's frame-1 scale, 1/2.5, 1.0, 1.37, 2.5 and None: within
    1e-5 a component, zeros on the invalid rows, three calls bitwise equal;
+   with a NaN pixel at one keypoint, that row all NaN on both routes and
+   the others F's within 1e-5 where the plain route's are finite;
    F's event and device time, bound and share beside the plain route's for
    both routes; the whole call's device time, kernels a call and event
    time through F and through the plain route;
@@ -99,7 +102,8 @@ traced with inflated times, or not at all).
    mode (``init``
    + ``run_segment_pixels_klt`` seeded with frame 0's features): no lost
    frame, pan MAE < 3e-3 rad, windowed BA ran, the counters equal to the
-   call sites' counts (kernel E once a KLT frame, kernel F once at ``init``
+   call sites' counts (kernel E's pyramid and LK launches once each a KLT
+   frame, kernel F once at ``init``
    and once a frame for the descriptors, no window gather),
    ``eval.evaluate_run``'s
    report. (f) ``PTZSlam.bundle_adjust``
@@ -153,8 +157,8 @@ traced with inflated times, or not at all).
    ``ba.run`` / ``ba.run_robust`` without a group, on the BA bench problem.
 
 The line before the last is one JSON object with the kernels' numbers
-(``launches`` from run 4b, and for kernel E, which only KLT mode runs, from
-4e; kernel B, on no main path since kernels E and F took its call sites,
+(``launches`` from run 4b, and for kernel E's two launches (``lk_track``,
+``build_pyramid``), which only KLT mode runs, from 4e; kernel B, on no main path since kernels E and F took its call sites,
 reads 0; ``launches_by_path`` from 4b, both 4c runs, 4e and the runs of
 5a-5c and 5e-5g); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -590,26 +594,48 @@ def lk_work(prev_pyr, next_pyr, xy, valid, patch, iters, min_eig, max_residual, 
     return nbytes, ops
 
 
-def lk_stage(dev, card) -> dict:
+def pyramid_work(h: int, w: int, levels: int, frames: int) -> tuple[int, int]:
+    """(bytes, fp32 operations) that kernel E's pyramid launch needs for
+    ``frames`` (h, w) frames at ``levels`` levels. Bytes: level 0 read once
+    and levels 1..levels-1 written once, 4 B a pixel. Operations, for each
+    level built from the one below (h_l x w_l to h_l+1 x w_l+1): the
+    vertical blur at the 2 h_l+1 rows the pool reads and every column, 9 a
+    value (5 products, 4 sums), the horizontal blur at the 2 h_l+1 x 2
+    w_l+1 pooled pixels, 9 each, and the pool, 4 an output."""
+    sizes = [(h >> lvl, w >> lvl) for lvl in range(levels)]
+    nbytes = 4 * (h * w + sum(a * b for a, b in sizes[1:]))
+    ops = sum(
+        9 * 2 * hn * wl + 9 * 4 * hn * wn + 4 * hn * wn
+        for (_, wl), (hn, wn) in zip(sizes, sizes[1:])
+    )
+    return frames * nbytes, frames * ops
+
+
+def lk_stage(dev, card) -> list[dict]:
     """3e: ``lk_track`` at the LK bench shape (4 levels, the backward check)
-    through kernel E, one launch and no window gather a call, against the
-    plain route on the card and the same code on the CPU: ``tracked``
-    equal, ``xy`` within 1e-3 px on tracked rows and the input position on
-    the others. Then E alone on the call's pyramids beside the plain route,
-    and the whole call's device time, kernels a call and event time.
-    Returns E's numbers."""
+    through kernel E, one pyramid launch, one LK launch and no window
+    gather a call, against the plain route on the card and the same code on
+    the CPU: ``tracked`` equal, ``xy`` within 1e-3 px on tracked rows and
+    the input position on the others; the pyramid launch's levels bitwise
+    the plain pyramids'. Then E's two launches alone beside their plain
+    versions (event and device time, bound, share), and the whole call's
+    device time, kernels a call (the two launches, no torch kernel) and
+    event time. Returns the LK launch's and the pyramid launch's numbers."""
     from ptzjax_torch.kernels import flow as fl
     from ptzjax_torch.kernels import window_gather as wg
 
     inputs = lk_bench_inputs()
     on_card = [torch.from_numpy(a).to(dev) for a in inputs]
-    g0, e0 = wg.launches, fl.launches
+    g0, e0, p0 = wg.launches, fl.launches, fl.pyramid_launches
     got = fl.lk_track(*on_card)
-    gathers, kernel_e = wg.launches - g0, fl.launches - e0
+    gathers, kernel_e, pyramids = wg.launches - g0, fl.launches - e0, fl.pyramid_launches - p0
     plain = fl.lk_track(*on_card, plain=True)
     ref = fl.lk_track(*(torch.from_numpy(a) for a in inputs))
     torch.cuda.synchronize()
-    check(kernel_e == 1 and gathers == 0, f"lk_track: {kernel_e} launches of E and {gathers} of B a call, 1 and 0 expected")
+    check(
+        (kernel_e, pyramids, gathers) == (1, 1, 0),
+        f"lk_track: {kernel_e} LK launches of E, {pyramids} pyramid launches and {gathers} of B a call; 1, 1 and 0 expected",
+    )
     tracked = plain.tracked
     check(torch.equal(got.tracked, tracked), "lk_track: tracked differs between kernel E and the plain route")
     err = float((got.xy[tracked] - plain.xy[tracked]).abs().max())
@@ -622,8 +648,22 @@ def lk_stage(dev, card) -> dict:
     check(int(tracked.sum()) > 400, f"lk_track: only {int(tracked.sum())} of 512 tracked")
 
     xy, valid = on_card[2], on_card[3]
-    prev_pyr = fl.build_pyramid(on_card[0], 4)
-    next_pyr = fl.build_pyramid(on_card[1], 4)
+    prev_pyr, next_pyr = fl.build_pyramids([on_card[0], on_card[1]], 4)
+    plain_pyrs = [fl.build_pyramid_plain(img, 4) for img in on_card[:2]]
+    torch.cuda.synchronize()
+    for got_p, want_p in zip((prev_pyr, next_pyr), plain_pyrs):
+        check(
+            all(torch.equal(a, b) for a, b in zip(got_p, want_p)),
+            "build_pyramids: a level differs from the plain pyramid's (bitwise expected)",
+        )
+    h, w = on_card[0].shape
+    p_bytes, p_ops = pyramid_work(h, w, 4, 2)
+    tp = timings(
+        lambda: fl.build_pyramids([on_card[0], on_card[1]], 4),
+        lambda: [fl.build_pyramid_plain(img, 4) for img in on_card[:2]],
+        p_bytes, p_ops, plain_batch=10,
+    )
+    tp["max_abs_err"] = 0.0
     nbytes, ops = lk_work(prev_pyr, next_pyr, xy, valid, **LK_OPTS)
     t = timings(
         lambda: fl.lk_pyramids(prev_pyr, next_pyr, xy, valid, **LK_OPTS),
@@ -636,21 +676,34 @@ def lk_stage(dev, card) -> dict:
         return fl.lk_track(*on_card)
 
     dev_ms, names = device_time(call, batch=20)
+    per_call = sum(names.values()) / 20
+    check(per_call == 2, f"lk_track: {per_call:g} kernels a call, 2 expected (E's two launches): {names}")
     print(
         f"lk_track 512 kp 720x1280, 4 levels + backward check: {int(tracked.sum())}/512 tracked; kernel E "
-        f"{kernel_e} launch and {gathers} window gathers a call; against the plain route on the card tracked "
-        f"equal, xy max_abs_err {err} px, residual max_abs_err {res_err} (tracked rows); against the CPU "
-        f"tracked equal, xy max_abs_err {err_cpu} px (tolerance 1e-3) [{card}]"
+        f"{kernel_e} LK launch, {pyramids} pyramid launch and {gathers} window gathers a call; against the plain "
+        f"route on the card tracked equal, xy max_abs_err {err} px, residual max_abs_err {res_err} (tracked rows); "
+        f"against the CPU tracked equal, xy max_abs_err {err_cpu} px (tolerance 1e-3) [{card}]"
     )
-    print(f"kernel E (lk_pyramids) 512 kp, 4 levels + backward check, {nbytes} B, {ops} flop: {describe(t)} [{card}]")
     print(
-        f"lk_track stage 512 kp 720x1280: {dev_ms:.4f} ms device, {sum(names.values()) / 20:g} kernels a call, "
+        f"kernel E's pyramid launch (build_pyramids) 720x1280 pair, 4 levels, {p_bytes} B, {p_ops} flop: levels "
+        f"bitwise the plain pyramids'; {describe(tp)} [{card}]"
+    )
+    print(f"kernel E's LK launch (lk_pyramids) 512 kp, 4 levels + backward check, {nbytes} B, {ops} flop: {describe(t)} [{card}]")
+    print(
+        f"lk_track stage 512 kp 720x1280: {dev_ms:.4f} ms device, {per_call:g} kernels a call, "
         f"{time_ms(call, reps=3, batch=20):.4f} ms event [{card}]"
     )
-    return {
-        "name": "lk_track", "route": "cuda", "source": "ptzjax_torch/csrc/lk_flow.cu",
-        "replaces": "ptzjax/kernels/window_pallas.py:67", **t,
-    }
+    return [
+        {
+            "name": "lk_track", "route": "cuda", "source": "ptzjax_torch/csrc/lk_flow.cu",
+            "replaces": "ptzjax/kernels/window_pallas.py:67", **t,
+        },
+        {
+            "name": "build_pyramid", "route": "cuda", "source": "ptzjax_torch/csrc/lk_flow.cu",
+            "replaces": "ptzjax/kernels/flow.py:72", **tp,
+            "note": "the pyramids of lk_track (XLA code beside the TPU kernel in the reference's jitted lk_track)",
+        },
+    ]
 
 
 def sync_sites(fn) -> list[str]:
@@ -680,49 +733,57 @@ def sync_sites(fn) -> list[str]:
     return sites
 
 
-def describe_work(img: torch.Tensor, xy: torch.Tensor, valid: torch.Tensor, scale) -> tuple[int, int]:
-    """(bytes, fp32 operations) that kernel F needs for these inputs, counted
-    from the samples the descriptor depends on. The gradients read every
-    aligned sample of the 18 x 18 grid but its 4 corners; with a scale, a
-    sample reads the blended window at the resample's nonzero taps (at this
-    run's clamped scale: at unit spacing one blended sample each); a
-    blended sample reads its 2 x 2 window pixels. Bytes: those pixels of
-    the valid rows, each image pixel once, the spatial table (16 KB) and
-    the scale, 9 B of position and flag read and 512 B of descriptor
-    written a keypoint. Operations, a valid keypoint: 11 a needed blended
-    sample; with a scale, 3 a tap pair of the separable resample (18 a
-    needed blended row, then the 18 x 18 grid); 16 a patch pixel for its
-    gradient, magnitude, orientation and bins; the histogram's nonzero
-    terms (each pixel's nonzero spatial weights x its 2 orientation bins),
-    3 each, and 4 a pixel for its orientation weights; 10 a bin for the
-    normalization. F itself loads and blends whole windows and its bin loop
-    runs over the exact zeros; this count leaves both out."""
+def describe_reads(h: int, w: int, xy: torch.Tensor, scale) -> tuple[torch.Tensor, torch.Tensor]:
+    """The image pixels each row's descriptor depends on: (flat indices (K,
+    n) of the (h, w) image, blended-sample mask of the aligned window). The
+    gradients read every aligned sample of the 18 x 18 grid but its 4
+    corners; with a scale, a sample reads the blended window at the
+    resample's nonzero taps (at this run's clamped scale); a blended sample
+    reads its 2 x 2 window pixels. Kernel F loads these rows and columns of
+    each window; the plain route's dense product reads the whole window."""
     from ptzjax_torch.kernels import descriptor as kd
 
-    side, pix = kd.PATCH + 2, kd.PATCH * kd.PATCH
+    side = kd.PATCH + 2
     grid = torch.ones(side, side)
     grid[0, 0] = grid[0, -1] = grid[-1, 0] = grid[-1, -1] = 0.0
     if scale is None:
-        win, blended, resample = side, grid > 0, 0
+        win, blended = side, grid > 0
     else:
         win = kd.SCALED_WIN
         s = torch.as_tensor(scale, dtype=torch.float32).cpu().clamp(1.0 / kd.MAX_SCALE, kd.MAX_SCALE)
         taps = (kd._resample_matrix(s, side, win) != 0).to(torch.float32)     # (18, 46)
         blended = taps.T @ grid @ taps > 0
-        resample = (int(blended.any(1).sum()) * side + side * side) * 3
     raw = torch.zeros(win + 1, win + 1, dtype=torch.bool)
     for dy in (0, 1):
         for dx in (0, 1):
             raw[dy : dy + win, dx : dx + win] |= blended
+    rows, cols = kd._window_pixels(h, w, xy, win)
+    return (rows[:, :, None] * w + cols[:, None, :])[:, raw.to(rows.device)], blended
+
+
+def describe_work(img: torch.Tensor, xy: torch.Tensor, valid: torch.Tensor, scale) -> tuple[int, int]:
+    """(bytes, fp32 operations) that kernel F needs for these inputs, counted
+    from the samples the descriptor depends on (``describe_reads``). Bytes:
+    those pixels of the valid rows, each image pixel once, the scale, 9 B of
+    position and flag read and 512 B of descriptor written a keypoint (the
+    spatial weights are constants of the function). Operations, a valid keypoint: 11
+    a needed blended sample; with a scale, 3 a tap pair of the separable
+    resample (18 a needed blended row, then the 18 x 18 grid); 16 a patch
+    pixel for its gradient, magnitude, orientation and bins; the histogram's
+    nonzero terms (each pixel's nonzero spatial weights x its 2 orientation
+    bins), 3 each, and 4 a pixel for its orientation weights; 10 a bin for
+    the normalization."""
+    from ptzjax_torch.kernels import descriptor as kd
+
+    side, pix = kd.PATCH + 2, kd.PATCH * kd.PATCH
     h, w = img.shape
-    rows, cols = kd._window_pixels(h, w, xy[valid], win)
-    pixels = (rows[:, :, None] * w + cols[:, None, :])[:, raw.to(rows.device)]
+    pixels, blended = describe_reads(h, w, xy[valid], scale)
+    resample = 0 if scale is None else (int(blended.any(1).sum()) * side + side * side) * 3
     covered = torch.unique(pixels.reshape(-1)).numel()
     num, n_valid = xy.shape[0], int(valid.sum())
-    spatial = kd._spatial_weights(img.device)
-    nbytes = 4 * covered + spatial.numel() * 4 + (0 if scale is None else 4) + num * (9 + 4 * kd.DESC_DIM)
-    terms = int((spatial != 0).sum()) * 2
-    per_kp = 11 * int(blended.sum()) + resample + 16 * pix + 3 * terms + 4 * pix + 10 * kd.DESC_DIM
+    nonzero = int((kd._spatial_weights(img.device) != 0).sum())
+    nbytes = 4 * covered + (0 if scale is None else 4) + num * (9 + 4 * kd.DESC_DIM)
+    per_kp = 11 * int(blended.sum()) + resample + 16 * pix + 3 * 2 * nonzero + 4 * pix + 10 * kd.DESC_DIM
     return nbytes, n_valid * per_kp
 
 
@@ -780,6 +841,40 @@ def describe_stage(imgs: torch.Tensor, cams, intr, card: str) -> dict:
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f" (4b frame-1 scale {float(s_4b)}); invalid rows zero; three calls bitwise equal; 1 launch of F and "
         f"0 of B a call [{card}]"
+    )
+    # a non-finite pixel at row 0's keypoint: that row all NaN on both
+    # routes; every other row F's within 1e-5 where the plain route's is
+    # finite. Where the pixel lies in a row's 47-wide window but outside the
+    # pixels F reads for it, the plain route's dense product (0 x inf) makes
+    # that row NaN and F's stays finite
+    h, w = img.shape
+    spot = (int(xy[0, 1]), int(xy[0, 0]))
+    bad = img.clone()
+    bad[spot] = float("nan")
+    nan_rows = {}
+    for name in ("4b frame 1", "1/2.5", "2.5", "None"):
+        s = scales[name]
+        got = kd.describe_keypoints(bad, xy, valid, scale=s)
+        ref = kd.describe_keypoints(bad, xy, valid, scale=s, plain=True)
+        again = kd.describe_keypoints(bad, xy, valid, scale=s)
+        torch.cuda.synchronize()
+        check(bool(torch.isnan(got[0]).all() and torch.isnan(ref[0]).all()), f"3f NaN pixel, scale {name}: row 0 not all NaN")
+        fin = torch.isfinite(ref).all(1)
+        err = float((got[fin] - ref[fin]).abs().max())
+        check(err <= 1e-5, f"3f NaN pixel, scale {name}: F differs from the plain route by {err} on finite rows")
+        got_nan, ref_nan = torch.isnan(got).all(1), torch.isnan(ref).all(1)
+        check(bool((got_nan <= ref_nan).all()) and bool((torch.isnan(got).any(1) == got_nan).all()), f"3f NaN pixel, scale {name}: NaN rows")
+        reads, _ = describe_reads(h, w, xy, s)
+        apart = ref_nan & ~got_nan
+        check(not bool((reads[apart] == spot[0] * w + spot[1]).any()), f"3f NaN pixel, scale {name}: a finite F row reads the pixel")
+        check(bool(torch.isfinite(got[apart]).all()), f"3f NaN pixel, scale {name}: a row apart is not finite")
+        check(torch.equal(again.nan_to_num(7.0), got.nan_to_num(7.0)), f"3f NaN pixel, scale {name}: repeated calls differ")
+        nan_rows[name] = (int(got_nan.sum()), int(ref_nan.sum()), err)
+    print(
+        f"describe_keypoints with a NaN pixel at row 0's keypoint {spot}: rows all NaN through F / the plain route, and "
+        "max_abs_err on the plain route's finite rows, by scale: "
+        + ", ".join(f"{k} {a} / {b}, {e:.3g}" for k, (a, b, e) in nan_rows.items())
+        + f" (the rows apart read none of the pixel: F loads only what the taps read) [{card}]"
     )
     # no host read of the scale: a call waits for nothing; a tracked frame
     # (re-detect and KLT) waits only at the loop's designed reads
@@ -983,28 +1078,35 @@ def cholesky_phase(dev, card: str) -> dict:
     }
 
 
-KERNEL_MODULES = ("harris_nms", "window_gather", "match", "cholesky", "flow", "descriptor")
-COUNTER_NAMES = ("harris_nms", "gather_windows", "match_scores", "cholesky", "lk_track", "describe_keypoints")
+# each kernel's launch counter: (module of ptzjax_torch.kernels, attribute)
+COUNTERS = {
+    "harris_nms": ("harris_nms", "launches"), "gather_windows": ("window_gather", "launches"),
+    "match_scores": ("match", "launches"), "cholesky": ("cholesky", "launches"),
+    "lk_track": ("flow", "launches"), "build_pyramid": ("flow", "pyramid_launches"),
+    "describe_keypoints": ("descriptor", "launches"),
+}
+COUNTER_NAMES = tuple(COUNTERS)
 
 
 def reset_counts() -> None:
-    for mod in KERNEL_MODULES:
-        importlib.import_module(f"ptzjax_torch.kernels.{mod}").launches = 0
+    for mod, attr in COUNTERS.values():
+        setattr(importlib.import_module(f"ptzjax_torch.kernels.{mod}"), attr, 0)
     importlib.import_module("ptzjax_torch.kernels.harris_nms").masked_launches = 0
 
 
 def read_counts() -> dict:
     return {
-        name: importlib.import_module(f"ptzjax_torch.kernels.{mod}").launches
-        for mod, name in zip(KERNEL_MODULES, COUNTER_NAMES)
+        name: getattr(importlib.import_module(f"ptzjax_torch.kernels.{mod}"), attr)
+        for name, (mod, attr) in COUNTERS.items()
     }
 
 
 def expected_counts(infos, klt: bool = False) -> dict:
     """What the call sites launch in ``run_slice`` (or, with ``klt``, in
     ``run_klt``): detection and kernel F (the descriptors) on every frame
-    (``init``'s included), the window gather never; in KLT mode kernel E once on every
-    later frame; the matcher on every tracked frame, every keyframe insert
+    (``init``'s included), the window gather never; in KLT mode kernel E's
+    pyramid launch and its LK launch once each on every later frame (4
+    levels: one pyramid launch); the matcher on every tracked frame, every keyframe insert
     (the bootstrap's included) and every relocalization frame; the Cholesky
     on every tracked frame."""
     return _expected(infos.event.cpu().numpy(), infos.keyframe.cpu().numpy(), klt)
@@ -1023,7 +1125,8 @@ def _expected(event: np.ndarray, keyframe: np.ndarray, klt: bool) -> dict:
     return {
         "harris_nms": frames, "gather_windows": 0,
         "match_scores": tracked + inserts + 1 + relocs, "cholesky": tracked,
-        "lk_track": frames - 1 if klt else 0, "describe_keypoints": frames,
+        "lk_track": frames - 1 if klt else 0, "build_pyramid": frames - 1 if klt else 0,
+        "describe_keypoints": frames,
     }
 
 
@@ -1302,8 +1405,8 @@ def window_counts(infos: list, kind: str, masked: bool) -> dict:
     return {
         "harris_nms": frames * pixels, "gather_windows": 0,
         "match_scores": tracked + inserts + int((event == 1).sum()), "cholesky": tracked,
-        "lk_track": frames * (kind == "KLT"), "describe_keypoints": frames * pixels,
-        "masked": frames * masked,
+        "lk_track": frames * (kind == "KLT"), "build_pyramid": frames * (kind == "KLT"),
+        "describe_keypoints": frames * pixels, "masked": frames * masked,
     }
 
 
@@ -1898,7 +2001,10 @@ def homography_phase(tmp: str, card: str) -> dict:
     err = np.abs(pose - traj["gt"])
     mae20 = float(err[:20, 0].mean())
     inliers = np.array([r["num_matches"] for r in recs])
-    want = {"harris_nms": 96, "gather_windows": 0, "match_scores": 95, "cholesky": 0, "lk_track": 0, "describe_keypoints": 96}
+    want = {
+        "harris_nms": 96, "gather_windows": 0, "match_scores": 95, "cholesky": 0, "lk_track": 0,
+        "build_pyramid": 0, "describe_keypoints": 96,
+    }
     print(
         f"5e homography: 96 frames 720p: rejected {summary['frames_lost']}, pan MAE first 20 frames {mae20} rad, "
         f"all frames {float(err[:, 0].mean())} rad; inliers a frame mean {float(inliers.mean()):.1f}, min "
@@ -2096,7 +2202,7 @@ def main() -> int:
         check(counts_4b == want, f"{label}: launches {counts_4b}, call sites give {want}")
         # kernel E runs in KLT mode only (4e); B on no main path
         check(
-            all(v > 0 for k, v in counts_4b.items() if k not in ("lk_track", "gather_windows")),
+            all(v > 0 for k, v in counts_4b.items() if k not in ("lk_track", "build_pyramid", "gather_windows")),
             f"{label}: a kernel never launched: {counts_4b}",
         )
         pose = infos_4b.pose.cpu().numpy()
@@ -2157,12 +2263,12 @@ def main() -> int:
     kernels = kernel_phase(imgs[0], card)
     kernels.append(matcher_phase(dev, card))
     kernels.append(cholesky_phase(dev, card))
-    # 3e. the LK stage (kernel E)
-    kernels.append(lk_stage(dev, card))
+    # 3e. the LK stage (kernel E's two launches)
+    kernels.extend(lk_stage(dev, card))
     # 3f. the descriptor stage (kernel F)
     kernels.append(describe_stage(imgs, cams, intr, card))
     for k in kernels:
-        k["launches"] = (by_path["klt"] if k["name"] == "lk_track" else launches)[k["name"]]
+        k["launches"] = (by_path["klt"] if k["name"] in ("lk_track", "build_pyramid") else launches)[k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items() if k["name"] in c}
 
     # 4d, the profiled passes: device time and kernels per frame kind

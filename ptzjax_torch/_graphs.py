@@ -78,6 +78,7 @@ from ptzjax_torch.kernels import _build, cholesky, descriptor, flow, harris_nms,
 COUNTERS = (
     (harris_nms, "launches"), (harris_nms, "masked_launches"), (window_gather, "launches"),
     (match, "launches"), (cholesky, "launches"), (flow, "launches"), (descriptor, "launches"),
+    (flow, "pyramid_launches"),
 )
 
 # the frontends a graph may hold

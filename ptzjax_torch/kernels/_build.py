@@ -112,7 +112,9 @@ def load() -> ctypes.CDLL:
         vpp, cip = ctypes.POINTER(vp), ctypes.POINTER(ci)
         lib.ptz_lk_flow.argtypes = [vpp, vpp, cip, cip, ci] + [vp] * 5 + [ci] * 4 + [cf] * 6 + [ci, ci, vp]
         lib.ptz_lk_flow.restype = ci
-        lib.ptz_describe.argtypes = [vp, ci, ci] + [vp] * 5 + [ci, ci, vp]
+        lib.ptz_pyramid.argtypes = [vpp, vpp, cip, cip, ci, ci, ci, vp]
+        lib.ptz_pyramid.restype = ci
+        lib.ptz_describe.argtypes = [vp, ci, ci] + [vp] * 4 + [ci, ci, vp]
         lib.ptz_describe.restype = ci
         ull = ctypes.c_ulonglong
         for name, args in (

@@ -6,8 +6,10 @@ soft-binned over space and orientation, L2-normalized with the 0.2
 clip-and-renormalize.
 
 For a CUDA image ``describe_keypoints`` is one launch of kernel F
-(``csrc/describe.cu``): a CTA a keypoint, its window in shared memory, the
-descriptor computed next to it. The plain version
+(``csrc/describe.cu``): a CTA of 128 threads a keypoint, the window pixels
+it reads in shared memory, the descriptor computed next to them, each bin
+summed over the pixels where its cell's spatial weight is nonzero, the
+weights computed in registers. The plain version
 (``describe_keypoints_plain``) gathers the windows from an edge-padded copy
 of the image through ``kernels/window_gather.py`` (kernel B on the card) and
 runs the rest as torch ops. It is what runs on the CPU, and on the card only
@@ -49,8 +51,8 @@ def _patch_grid(device=None) -> tuple[torch.Tensor, torch.Tensor]:
 @functools.lru_cache(maxsize=None)
 def _spatial_weights(device=None) -> torch.Tensor:
     """(P*P, CELLS*CELLS) bilinear cell weights x Gaussian window, computed
-    once per device (the reference's jit folds it into a constant); callers,
-    kernel F included, only read it."""
+    once per device (the reference's jit folds it into a constant); callers
+    only read it."""
     dy, dx = _patch_grid(device)
     sigma = PATCH / 2.0
     gauss = torch.exp(-(dx * dx + dy * dy) / (2.0 * sigma * sigma))
@@ -218,10 +220,9 @@ def describe_kernel(
     if num == 0:
         return out
     h, w = img.shape
-    spatial = _spatial_weights(dev)
     err = _build.load().ptz_describe(
         img.data_ptr(), h, w, xy.data_ptr(), valid.data_ptr(),
-        None if scale is None else scale.data_ptr(), spatial.data_ptr(), out.data_ptr(), num,
+        None if scale is None else scale.data_ptr(), out.data_ptr(), num,
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "describe_keypoints")

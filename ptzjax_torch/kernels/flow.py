@@ -2,7 +2,7 @@
 Port of ``ptzjax/kernels/flow.py`` (the KLT frontend mode).
 
 Design, as in the reference:
-  * pyramid: ``levels`` blur-then-2x-mean-pool downsamples (torch).
+  * pyramid: ``levels`` blur-then-2x-mean-pool downsamples.
   * per level, coarse to fine: iterative LK. The template patch and its
     spatial-gradient normal matrix G (2x2 per keypoint) come from the
     previous frame and stay fixed; each Newton step resamples the next
@@ -11,16 +11,19 @@ Design, as in the reference:
   * validity: the G min-eigenvalue (Shi-Tomasi), in-bounds, residual bound
     and the anchored forward-backward check.
 
-On the card every level, the backward check and the tests are one launch of
-kernel E (``csrc/lk_flow.cu``, through ``lk_pyramids``): a warp a keypoint,
-its windows in shared memory, the Newton loop next to them. The plain
-version (``lk_pyramids_plain``) gathers one integer-aligned window per
-keypoint and level through ``kernels/window_gather.py`` and samples inside it
-with bilinear selection-matrix products, two batched ``torch.bmm`` a step in
-fp32 (the reference asks for bf16x3 on its TPU; the port computes in full
-fp32, TF32 off). It is what runs on the CPU, and on the card only where a
-caller asks for it (``lk_track(..., plain=True)``, for the card's parity
-checks).
+On the card ``lk_track`` is two launches of kernel E (``csrc/lk_flow.cu``):
+``build_pyramids`` builds both frames' pyramids in one (a CTA a tile of the
+top levels, recomputing its halo from level 0 in shared memory), and
+``lk_pyramids`` runs every level, the backward check and the tests in the
+other (a CTA of four warps a keypoint, its windows in shared memory, the
+Newton loop next to them). The plain versions (``build_pyramid_plain``, the
+torch blur and pool; ``lk_pyramids_plain``) gather one integer-aligned
+window per keypoint and level through ``kernels/window_gather.py`` and
+sample inside it with bilinear selection-matrix products, two batched
+``torch.bmm`` a step in fp32 (the reference asks for bf16x3 on its TPU; the
+port computes in full fp32, TF32 off). They are what runs on the CPU, and on
+the card only where a caller asks for them (``lk_track(..., plain=True)``,
+for the card's parity checks).
 
 The Newton loop runs a fixed number of iterations (no early exit, no host
 read): ``iters`` at level 0 and for the backward check, ``max(3, iters //
@@ -38,11 +41,13 @@ from ptzjax_torch import _device
 from ptzjax_torch.kernels import _build
 from ptzjax_torch.kernels.window_gather import gather_windows
 
-launches = 0   # kernel E launches since the last reset (plain calls not counted)
+launches = 0           # kernel E's LK launches since the last reset (plain calls not counted)
+pyramid_launches = 0   # kernel E's pyramid launches since the last reset
 
 MAX_PATCH = 15     # csrc/lk_flow.cu's kMaxPatch: the largest patch the kernel takes
 MAX_LEVELS = 8     # csrc/lk_flow.cu's kMaxLevels
-WARPS_PER_CTA = 4  # keypoints a CTA, a warp each
+WARPS_PER_CTA = 4  # the warps of a keypoint's CTA (csrc/lk_flow.cu's kThreads / 32)
+PYRAMID_LEVELS_A_LAUNCH = 3   # levels a pyramid launch builds (csrc/lk_flow.cu's kPyrBuild)
 
 
 class FlowResult(NamedTuple):
@@ -85,9 +90,10 @@ def _binomial5(a: torch.Tensor) -> torch.Tensor:
     return conv(conv(a, 0), 1)
 
 
-def build_pyramid(img: torch.Tensor, levels: int) -> list[torch.Tensor]:
-    """Blur-then-2x-subsample pyramid, level 0 = full resolution; every
-    level contiguous (kernel E reads them by pointer)."""
+def build_pyramid_plain(img: torch.Tensor, levels: int) -> list[torch.Tensor]:
+    """Blur-then-2x-subsample pyramid, level 0 = full resolution, in torch:
+    the pyramid launch's specification. Every level contiguous (kernel E
+    reads them by pointer)."""
     img = img.to(torch.float32).contiguous()
     pyr = [img]
     for _ in range(1, levels):
@@ -96,6 +102,75 @@ def build_pyramid(img: torch.Tensor, levels: int) -> list[torch.Tensor]:
         a = a[: h - h % 2, : w - w % 2]
         pyr.append(a.reshape(h // 2, 2, w // 2, 2).mean(dim=(1, 3)))
     return pyr
+
+
+def pyramid_plan(h: int, w: int, levels: int) -> list[tuple[int, int]]:
+    """The pyramid launches for an (h, w) frame: (first level built, levels
+    built) for each, ``PYRAMID_LEVELS_A_LAUNCH`` levels a launch from level
+    1 on (each a grid of 32 x 32 tiles of its first level, a z-slice a
+    frame); raises where a level would be empty."""
+    if not 1 <= levels <= MAX_LEVELS:
+        raise ValueError(f"build_pyramid: the kernel takes 1 to {MAX_LEVELS} levels, got {levels}")
+    if h >> (levels - 1) < 1 or w >> (levels - 1) < 1:
+        raise ValueError(f"build_pyramid: a {h}x{w} image has no {levels}-level pyramid")
+    return [
+        (base + 1, min(PYRAMID_LEVELS_A_LAUNCH, levels - 1 - base))
+        for base in range(0, levels - 1, PYRAMID_LEVELS_A_LAUNCH)
+    ]
+
+
+def build_pyramids(imgs, levels: int) -> list[list[torch.Tensor]]:
+    """The pyramids of one or two (H, W) frames of one shape: for CUDA
+    frames levels 1..levels-1 of both in one launch of kernel E's pyramid
+    kernel (one a ``PYRAMID_LEVELS_A_LAUNCH`` levels), every level a view of
+    one allocation; the plain version for CPU frames."""
+    global pyramid_launches
+    imgs = [img.to(torch.float32).contiguous() for img in imgs]
+    dev = imgs[0].device
+    if dev.type == "cpu":
+        return [build_pyramid_plain(img, levels) for img in imgs]
+    if dev.type != "cuda":
+        raise ValueError(f"build_pyramid: unsupported device {dev}")
+    if not 1 <= len(imgs) <= 2 or imgs[0].dim() != 2 or any(
+        img.shape != imgs[0].shape or img.device != dev for img in imgs
+    ):
+        raise ValueError(f"build_pyramid: one or two 2-D frames of one shape on one device, got "
+                         f"{[(tuple(i.shape), str(i.device)) for i in imgs]}")
+    h, w = imgs[0].shape
+    steps = pyramid_plan(h, w, levels)
+    sizes = [(h >> lvl, w >> lvl) for lvl in range(levels)]
+    per_frame = sum(a * b for a, b in sizes[1:])
+    buf = torch.empty((len(imgs) * per_frame,), dtype=torch.float32, device=dev)
+    pyrs, at = [], 0
+    for img in imgs:
+        pyr = [img]
+        for a, b in sizes[1:]:
+            pyr.append(buf[at : at + a * b].view(a, b))
+            at += a * b
+        pyrs.append(pyr)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for first, n in steps:
+        ptrs = ctypes.c_void_p * len(imgs)
+        outs = ctypes.c_void_p * (len(imgs) * n)
+        dims = ctypes.c_int * (n + 1)
+        err = lib.ptz_pyramid(
+            ptrs(*(pyr[first - 1].data_ptr() for pyr in pyrs)),
+            outs(*(pyr[first + k].data_ptr() for pyr in pyrs for k in range(n))),
+            dims(*(sizes[first - 1 + k][0] for k in range(n + 1))),
+            dims(*(sizes[first - 1 + k][1] for k in range(n + 1))),
+            len(imgs), n, dev.index, stream,
+        )
+        _build.check(err, "build_pyramid")
+        pyramid_launches += 1
+    return pyrs
+
+
+def build_pyramid(img: torch.Tensor, levels: int) -> list[torch.Tensor]:
+    """Blur-then-2x-subsample pyramid, level 0 = full resolution; every
+    level contiguous (kernel E reads them by pointer): ``build_pyramids`` of
+    one frame."""
+    return build_pyramids([img], levels)[0]
 
 
 def _gather(pimg: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, size: int) -> torch.Tensor:
@@ -240,7 +315,8 @@ def _lk_forward(prev_pyr, next_pyr, xy, patch: int, iters: int):
 
 
 def plan(num: int, levels: int, patch: int, h: int, w: int) -> int:
-    """Kernel E's CTAs for ``num`` keypoints on an (h, w) image; raises for
+    """Kernel E's LK CTAs for ``num`` keypoints on an (h, w) image, one a
+    keypoint (``WARPS_PER_CTA`` warps each); raises for
     what the kernel does not take: a patch that is even or above
     ``MAX_PATCH``, levels outside 1..``MAX_LEVELS``, a pyramid whose top
     level would be empty."""
@@ -250,7 +326,7 @@ def plan(num: int, levels: int, patch: int, h: int, w: int) -> int:
         raise ValueError(f"lk_track: the kernel takes an odd patch of 1 to {MAX_PATCH}, got {patch}")
     if h >> (levels - 1) < 1 or w >> (levels - 1) < 1:
         raise ValueError(f"lk_track: a {h}x{w} image has no {levels}-level pyramid")
-    return -(-num // WARPS_PER_CTA)
+    return num
 
 
 def lk_pyramids_plain(
@@ -368,8 +444,9 @@ def lk_track(
       border: reject tracks within this many pixels of the image edge.
       device: where to run; by default the device of ``img_prev`` if it is
         a tensor, else the card (raising where there is none).
-      plain: on the card, run the plain version instead of kernel E (for
-        the card's parity checks; the main path never asks for it).
+      plain: on the card, run the plain versions instead of kernel E's two
+        launches (for the card's parity checks; the main path never asks
+        for it).
 
     Returns:
       FlowResult with the same capacity K, on that device.
@@ -381,12 +458,14 @@ def lk_track(
         torch.as_tensor(v, device=dev) for v in (img_prev, img_next, xy, valid)
     )
     xy = xy.to(torch.float32)
-    prev_pyr = build_pyramid(img_prev, levels)
-    next_pyr = build_pyramid(img_next, levels)
     opts = dict(
         patch=patch, iters=iters, min_eig=min_eig, max_residual=max_residual,
         fb_check=fb_check, fb_tol=fb_tol, border=border,
     )
     if plain:
+        prev_pyr, next_pyr = (build_pyramid_plain(img, levels) for img in (img_prev, img_next))
         return lk_pyramids_plain(prev_pyr, next_pyr, xy, valid, **opts)
+    if dev.type == "cuda":   # refuse what the LK launch does not take before the pyramid launch
+        plan(xy.shape[0], levels, patch, *img_prev.shape[-2:])
+    prev_pyr, next_pyr = build_pyramids([img_prev, img_next], levels)
     return lk_pyramids(prev_pyr, next_pyr, xy, valid, **opts)

@@ -239,6 +239,33 @@ def test_descriptor_kernel_edge_far_and_non_finite_rows(cuda_device, scale):
     assert bool(torch.isfinite(got[:10]).all())
 
 
+@pytest.mark.parametrize("scale", [0.1, 0.4, 2.5, 10.0, None])
+def test_descriptor_kernel_at_the_clamp_ends_with_a_non_finite_patch(cuda_device, scale):
+    """F at both clamp ends of the scale (and past them) and without one, on
+    a frame with an infinite pixel at one keypoint and a NaN pixel at
+    another: those rows all NaN on both routes, every row where the plain
+    route is finite F's within 1e-5, and a row NaN through F only where the
+    plain route's is (F reads only the pixels its taps reach; the plain
+    route's dense product also reads the rest of the window, 0 x inf)."""
+    img, xy, valid = _frame_720p(cuda_device)
+    bad = img.clone()
+    rows = valid.nonzero().flatten()[[3, 40]].tolist()
+    for row, value in zip(rows, (float("inf"), float("nan"))):
+        bad[int(xy[row, 1]), int(xy[row, 0])] = value
+    got, ref = _f_and_plain(bad, xy, valid, scale)
+    assert bool(torch.isnan(got[rows]).all() and torch.isnan(ref[rows]).all())
+    finite = torch.isfinite(ref).all(1)
+    assert int(finite.sum()) > 400
+    torch.testing.assert_close(got[finite], ref[finite], rtol=0, atol=1e-5)
+    got_nan = torch.isnan(got).any(1)
+    assert bool((got_nan <= ~finite).all()) and bool((torch.isnan(got[got_nan]).all()))
+    if scale is None:
+        assert torch.equal(got_nan, ~finite)
+    s = None if scale is None else torch.tensor(scale, dtype=torch.float32, device=cuda_device)
+    again = tdesc.describe_keypoints(bad, xy, valid, scale=s)
+    assert torch.equal(again.nan_to_num(7.0), got.nan_to_num(7.0))
+
+
 def test_descriptor_kernel_refuses_what_it_does_not_take(cuda_device):
     """A wrong dtype, a wrong device or a non-contiguous input raises before
     any launch; nothing falls back to the plain route."""
@@ -268,12 +295,13 @@ def _lk_pair(device):
 
 
 def test_lk_track_on_card_matches_cpu(cuda_device):
-    """The card (kernel E, one launch a call at 4 levels with the backward
-    check, no window gather) against the CPU (plain route): ``tracked``
-    equal, ``xy`` within 1e-3 px on tracked rows."""
-    e0, b0 = tflow.launches, twg.launches
+    """The card (kernel E, a pyramid launch and an LK launch a call at 4
+    levels with the backward check, no window gather) against the CPU
+    (plain route): ``tracked`` equal, ``xy`` within 1e-3 px on tracked
+    rows."""
+    e0, b0, p0 = tflow.launches, twg.launches, tflow.pyramid_launches
     got = tflow.lk_track(*_lk_pair(cuda_device))
-    assert tflow.launches == e0 + 1 and twg.launches == b0
+    assert tflow.launches == e0 + 1 and twg.launches == b0 and tflow.pyramid_launches == p0 + 1
     ref = tflow.lk_track(*_lk_pair("cpu"))
     tracked = ref.tracked
     assert int(tracked.sum()) > 100
@@ -322,17 +350,18 @@ def _small_step_pair(device):
 
 @pytest.mark.parametrize("levels", [1, 3, 4])
 def test_lk_kernel_matches_the_plain_route(cuda_device, levels):
-    """Kernel E (one launch, no gather) against ``lk_track(..., plain=True)``
-    on the same card tensors, with and without the backward check, rows at
-    the edges, an invalid row and non-finite rows included."""
+    """Kernel E (an LK launch, a pyramid launch where there is a level to
+    build, no gather) against ``lk_track(..., plain=True)`` on the same card
+    tensors, with and without the backward check, rows at the edges, an
+    invalid row and non-finite rows included."""
     img0, img1, xy, valid = _small_step_pair(cuda_device)
     xy, valid = _with_edge_rows(xy, valid, W, H)
     for fb_check in (True, False):
-        e0, b0 = tflow.launches, twg.launches
+        e0, b0, p0 = tflow.launches, twg.launches, tflow.pyramid_launches
         got = tflow.lk_track(img0, img1, xy, valid, levels=levels, fb_check=fb_check)
-        assert tflow.launches == e0 + 1 and twg.launches == b0
+        assert tflow.launches == e0 + 1 and twg.launches == b0 and tflow.pyramid_launches == p0 + (levels > 1)
         ref = tflow.lk_track(img0, img1, xy, valid, levels=levels, fb_check=fb_check, plain=True)
-        assert tflow.launches == e0 + 1
+        assert tflow.launches == e0 + 1 and tflow.pyramid_launches == p0 + (levels > 1)
         _kernel_e_parity(got, ref, xy, valid)
         assert int(ref.tracked.sum()) > 80
 
@@ -365,6 +394,71 @@ def test_lk_kernel_refuses_what_it_does_not_take(cuda_device):
     assert tflow.launches == e0 and twg.launches == b0
 
 
+@pytest.mark.parametrize(
+    "shape, levels",
+    [((720, 1280), 4), ((720, 1280), 2), ((720, 1280), 8), ((121, 163), 3), ((725, 1283), 5), ((8, 8), 4),
+     ((9, 13), 4), ((90, 160), 1)],
+)
+def test_pyramid_launch_is_the_plain_pyramid_bitwise(cuda_device, shape, levels):
+    """Kernel E's pyramid launch against ``build_pyramid_plain`` on the card,
+    for two frames and for one: every level bitwise, at 720p, at odd sizes
+    (the crop before the pool), with a top level of 1 px, beyond 4 levels
+    (a launch a 3 levels) and at one level (no launch, the frame itself)."""
+    rng = np.random.default_rng(levels)
+    imgs = [torch.from_numpy(rng.uniform(0.0, 1.0, shape).astype(np.float32)).to(cuda_device) for _ in range(2)]
+    want = [tflow.build_pyramid_plain(img, levels) for img in imgs]
+    steps = len(tflow.pyramid_plan(*shape, levels))
+    assert steps == -(-(levels - 1) // tflow.PYRAMID_LEVELS_A_LAUNCH)
+    for frames in (imgs, imgs[:1]):
+        p0 = tflow.pyramid_launches
+        got = tflow.build_pyramids(frames, levels)
+        assert tflow.pyramid_launches == p0 + steps
+        for g, w_ in zip(got, want):
+            assert [tuple(a.shape) for a in g] == [tuple(b.shape) for b in w_]
+            assert all(a.is_contiguous() and torch.equal(a, b) for a, b in zip(g, w_))
+    assert torch.equal(tflow.build_pyramid(imgs[0], levels)[-1], want[0][-1])
+
+
+def test_pyramid_launch_refuses_what_it_does_not_take(cuda_device):
+    """An empty level, more than two frames, frames of two shapes: raise
+    before any launch."""
+    img = torch.zeros((90, 160), device=cuda_device)
+    p0 = tflow.pyramid_launches
+    for frames, levels in (([img], 9), ([img[:4]], 4), ([img, img, img], 2), ([img, img[:, :80]], 2)):
+        with pytest.raises(ValueError, match="build_pyramid"):
+            tflow.build_pyramids(frames, levels)
+    assert tflow.pyramid_launches == p0
+
+
+def test_lk_track_and_descriptors_capture_and_replay_bitwise(cuda_device):
+    """Kernel E's two launches (``lk_track``) and kernel F
+    (``describe_keypoints`` with a scale on the card) captured in one CUDA
+    graph: no host read, no allocation outside the capture's pool; a replay
+    on new inputs copied into the captured ones gives the eager calls' bits
+    on those inputs."""
+    img0, img1, xy, valid = _small_step_pair(cuda_device)
+    scale = torch.tensor(1.37, device=cuda_device)
+
+    def run():
+        flow = tflow.lk_track(img0, img1, xy, valid)
+        return flow, tdesc.describe_keypoints(img1, flow.xy, flow.tracked, scale=scale)
+
+    run()   # the eager first call (F's table, the library)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        flow, desc = run()
+    other0, other1, other_xy, other_valid = _lk_pair(cuda_device)
+    for a, b in ((img0, other0[:H, :W]), (img1, other1[:H, :W]), (xy, other_xy), (valid, other_valid)):
+        a.copy_(b)
+    graph.replay()
+    want_flow, want_desc = run()
+    torch.cuda.synchronize()
+    assert int(want_flow.tracked.sum()) > 80
+    assert all(torch.equal(a, b) for a, b in zip(flow, want_flow))
+    assert torch.equal(desc, want_desc)
+
+
 def _klt_run(dev, imgs, cams, intr):
     cfg = SLAMConfig(
         image_width=W, image_height=H, max_keypoints=160, max_rays=96, max_map_rays=1024,
@@ -374,21 +468,21 @@ def _klt_run(dev, imgs, cams, intr):
     frames = torch.from_numpy(imgs).to(dev)
     xy0, d0, v0 = extract_features(frames[0], slam.cfg)
     state = slam.init(xy0, d0, v0, cams[0])
-    b0, e0, f0 = twg.launches, tflow.launches, tdesc.launches
+    b0, e0, f0, p0 = twg.launches, tflow.launches, tdesc.launches, tflow.pyramid_launches
     state, infos, xy, valid = slam.run_segment_pixels_klt(state, frames[1:], frames[0], xy0, v0)
-    return slam, state, infos, (twg.launches - b0, tflow.launches - e0, tdesc.launches - f0)
+    return slam, state, infos, (twg.launches - b0, tflow.launches - e0, tdesc.launches - f0, tflow.pyramid_launches - p0)
 
 
 def test_klt_slice_on_card_matches_cpu(cuda_device):
     """KLT mode on the card (kernels A and C-F) and on the CPU: the same
     flags, poses within 5e-4 rad and 2 px, and a frame's launches: one of
-    kernel E (the flow), one of kernel F (the descriptors) and no window
-    gather."""
+    each of kernel E's (the pyramids, the flow), one of kernel F (the
+    descriptors) and no window gather."""
     imgs, cams, intr = _render(30)
     imgs = imgs[:14]
     _, _, i_cpu, _ = _klt_run("cpu", imgs, cams, intr)
-    _, _, i_gpu, (gathers, flows, descs) = _klt_run(cuda_device, imgs, cams, intr)
-    assert flows == descs == len(imgs) - 1 and gathers == 0
+    _, _, i_gpu, (gathers, flows, descs, pyramids) = _klt_run(cuda_device, imgs, cams, intr)
+    assert flows == descs == pyramids == len(imgs) - 1 and gathers == 0
     for name in ("lost", "event", "keyframe"):
         np.testing.assert_array_equal(getattr(i_gpu, name).cpu().numpy(), getattr(i_cpu, name).numpy())
     assert int(i_gpu.keyframe.sum()) >= 2 and not bool(i_gpu.lost.any())
@@ -929,7 +1023,10 @@ def _waits(call) -> int:
 
 
 def _counts():
-    return (thn.launches, thn.masked_launches, tkm.launches, tch.launches, tdesc.launches, tflow.launches, twg.launches)
+    return (
+        thn.launches, thn.masked_launches, tkm.launches, tch.launches, tdesc.launches, tflow.launches, twg.launches,
+        tflow.pyramid_launches,
+    )
 
 
 def _one_frame_calls(slam, state, frames, masks, kind, feats):
@@ -990,7 +1087,7 @@ def test_klt_and_features_graph_routes_are_the_eager_route_bitwise(cuda_device, 
     assert all(_bitwise(a, b) for a, b in zip(i_g, i_e)) and _bitwise(s_g, s_e)
     assert all(torch.equal(a, b) for a, b in zip(c_g, c_e))
     klt = kind == "klt"
-    assert n_g == n_e == (79 * klt, 79 * masked, 79, 79, 79 * klt, 79 * klt, 0)
+    assert n_g == n_e == (79 * klt, 79 * masked, 79, 79, 79 * klt, 79 * klt, 0, 79 * klt)
     assert [k[0] for k in slam_g._graphs.graphs] == [kind] and not any(bool(i.lost[0]) for i in i_g)
     assert w_g == [1] * 78
 
@@ -1076,16 +1173,16 @@ def _blackout_bench_frames():
 
 def _window_expected(infos, kind, masked) -> tuple:
     """``_counts()``'s launches that the call sites give for a window's
-    infos: A and F a frame from pixels (A masked where the frames are), E a
-    KLT frame, C a tracked frame, an insert and a relocalization frame, D
-    a tracked frame, B never."""
+    infos: A and F a frame from pixels (A masked where the frames are), E's
+    two launches a KLT frame, C a tracked frame, an insert and a
+    relocalization frame, D a tracked frame, B never."""
     event = torch.cat([i.event for i in infos]).cpu().numpy()
     keyframe = torch.cat([i.keyframe for i in infos]).cpu().numpy()
     frames, tracked = len(event), int((event == 0).sum())
     pixels, klt = kind != "features", kind == "klt"
     return (
         frames * pixels, frames * masked, tracked + int(keyframe.sum()) + int((event == 1).sum()),
-        tracked, frames * pixels, frames * klt, 0,
+        tracked, frames * pixels, frames * klt, 0, frames * klt,
     )
 
 

@@ -93,6 +93,95 @@ def test_fixed_order_bin_sums_equal_the_histogram_einsum(scale):
     torch.testing.assert_close(acc, hist, rtol=0, atol=1e-6)
 
 
+def _pixel_bins(sub: torch.Tensor):
+    """``_orientation_bins``' magnitude, fractional bin and lower bin (K,
+    P*P) each, by its own formulas."""
+    gxs = (0.5 * (sub[:, 1:-1, 2:] - sub[:, 1:-1, :-2])).reshape(-1, tdesc.PATCH * tdesc.PATCH)
+    gys = (0.5 * (sub[:, 2:, 1:-1] - sub[:, :-2, 1:-1])).reshape(-1, tdesc.PATCH * tdesc.PATCH)
+    mag = torch.sqrt(gxs * gxs + gys * gys + 1e-12)
+    b = (torch.atan2(gys, gxs) / (2.0 * math.pi) + 0.5) * tdesc.ORI_BINS
+    b0 = torch.floor(b)
+    return mag, b - b0, torch.remainder(b0.to(torch.int32), tdesc.ORI_BINS)
+
+
+def _cell_span(c: int) -> tuple[int, int]:
+    """The patch rows (and columns) lo..hi inclusive where cell row (or
+    column) c's bilinear weight is positive (csrc/describe.cu's cell_lo,
+    cell_hi)."""
+    return max(4 * c - 2, 0), min(4 * c + 5, tdesc.PATCH - 1)
+
+
+def _nonzero_bin_sums(mag, fb, lower, spatial):
+    """Kernel F's histogram (csrc/describe.cu) in torch: bin (cell, o) sums
+    (mag_p w_pc) x (1 - fb_p or fb_p) over its cell's rectangle in index
+    order, only where o is pixel p's lower or upper orientation bin;
+    every bin NaN where a magnitude or a fractional bin of the patch is not
+    finite."""
+    k = mag.shape[0]
+    hist = torch.zeros((k, tdesc.CELLS * tdesc.CELLS, tdesc.ORI_BINS))
+    bins = torch.arange(tdesc.ORI_BINS)
+    for cy in range(tdesc.CELLS):
+        for cx in range(tdesc.CELLS):
+            (r0, r1), (q0, q1) = _cell_span(cy), _cell_span(cx)
+            c = cy * tdesc.CELLS + cx
+            acc = hist[:, c]
+            for r in range(r0, r1 + 1):
+                for q in range(q0, q1 + 1):
+                    p = r * tdesc.PATCH + q
+                    x = (mag[:, p] * spatial[p, c])[:, None]
+                    lo = lower[:, p, None] == bins
+                    hi = torch.remainder(lower[:, p, None] + 1, tdesc.ORI_BINS) == bins
+                    f = fb[:, p, None]
+                    acc = torch.where(lo, acc + x * (1.0 - f), torch.where(hi, acc + x * f, acc))
+            hist[:, c] = acc
+    bad = ~(torch.isfinite(mag) & torch.isfinite(fb)).all(-1)
+    hist[bad] = float("nan")
+    return hist
+
+
+@pytest.mark.parametrize("scale", [None, 1.37])
+def test_nonzero_term_bin_sums_equal_the_full_loop(scale):
+    """F's histogram, each bin over its cell's nonzero spatial weights and
+    its own orientation bins only (784 of the table's 4,096 entries, 2 of
+    the 8 bins), is the in-order loop over all 256 pixels bit for bit on
+    finite inputs (the terms left out are exact zeros); the cells'
+    rectangles are exactly the table's nonzeros. With an infinite or NaN pixel in a patch,
+    that row is all NaN after the normalization, as the full loop's is, and
+    the other rows keep their bits."""
+    img, xy, _ = _inputs()
+    s = None if scale is None else torch.tensor(scale, dtype=torch.float32)
+    spatial = tdesc._spatial_weights(torch.device("cpu"))
+    rectangles = torch.zeros_like(spatial, dtype=torch.bool)
+    for cy in range(tdesc.CELLS):
+        for cx in range(tdesc.CELLS):
+            (r0, r1), (q0, q1) = _cell_span(cy), _cell_span(cx)
+            grid = torch.zeros((tdesc.PATCH, tdesc.PATCH), dtype=torch.bool)
+            grid[r0 : r1 + 1, q0 : q1 + 1] = True
+            rectangles[:, cy * tdesc.CELLS + cx] = grid.reshape(-1)
+    assert torch.equal(rectangles, spatial != 0) and int(rectangles.sum()) == 784
+    bad = img.copy()
+    x0, y0 = int(xy[5, 0]), int(xy[5, 1])
+    bad[y0, x0] = np.inf
+    x1, y1 = int(xy[6, 0]), int(xy[6, 1])
+    bad[y1, x1] = np.nan
+    for image, broken in ((img, ()), (bad, (5, 6))):
+        sub = tdesc._aligned_samples(t(image), t(xy[:-1]), s)
+        mag, fb, lower = _pixel_bins(sub)
+        mag_p, ori_w = tdesc._orientation_bins(sub)
+        torch.testing.assert_close(mag, mag_p, rtol=0, atol=0, equal_nan=True)
+        full = torch.zeros((mag.shape[0], tdesc.CELLS * tdesc.CELLS, tdesc.ORI_BINS))
+        for p in range(tdesc.PATCH * tdesc.PATCH):
+            full = full + (mag_p[:, p, None, None] * spatial[p, None, :, None]) * ori_w[:, p, None, :]
+        model = _nonzero_bin_sums(mag, fb, lower, spatial)
+        finite = (torch.isfinite(mag) & torch.isfinite(fb)).all(-1)
+        assert not bool(finite[list(broken)].any()) and int(finite.sum()) >= 30
+        assert torch.equal(model[finite], full[finite])
+        if broken:
+            for hist in (model, full):
+                desc = tdesc._normalize(hist.reshape(-1, tdesc.DESC_DIM))
+                assert bool(torch.isnan(desc[~finite]).all()) and bool(torch.isfinite(desc[finite]).all())
+
+
 def test_spatial_weights_computed_once_per_device():
     """The table is built once per device and reused (the plain route and F
     read the same bits); it equals a fresh computation bitwise."""

@@ -232,10 +232,129 @@ def test_plan_refuses_what_the_kernel_does_not_take(levels, patch, h, w):
 
 
 def test_plan_gives_a_warp_a_keypoint():
-    assert tflow.plan(512, 4, 13, 720, 1280) == 512 // tflow.WARPS_PER_CTA == 128
-    assert tflow.plan(513, 4, 13, 720, 1280) == 129
+    """Kernel E's LK launch gives a keypoint a CTA of ``WARPS_PER_CTA``
+    warps (the name is the first layout's, a warp a keypoint): 512
+    keypoints are 512 CTAs of 4 warps, whose 128 threads hold the patch's
+    169 samples (at most 225) two a thread at most."""
+    assert tflow.WARPS_PER_CTA == 4 and 2 * 32 * tflow.WARPS_PER_CTA >= tflow.MAX_PATCH**2
+    assert tflow.plan(512, 4, 13, 720, 1280) == 512
+    assert tflow.plan(513, 4, 13, 720, 1280) == 513
     assert tflow.plan(0, 1, tflow.MAX_PATCH, 1, 1) == 0
-    assert tflow.plan(160, tflow.MAX_LEVELS, 1, 720, 1280) == 40
+    assert tflow.plan(160, tflow.MAX_LEVELS, 1, 720, 1280) == 160
+
+
+@pytest.mark.parametrize(
+    "h, w, levels, want",
+    [
+        (720, 1280, 4, [(1, 3)]),                  # the bench pair: one launch
+        (720, 1280, 1, []),                        # no level to build
+        (720, 1280, 8, [(1, 3), (4, 3), (7, 1)]),
+        (121, 163, 3, [(1, 2)]),
+        (8, 8, 4, [(1, 3)]),                       # a top level of 1 px
+    ],
+)
+def test_pyramid_plan_builds_three_levels_a_launch(h, w, levels, want):
+    """The pyramid launches: levels 1..levels-1, three a launch."""
+    assert tflow.pyramid_plan(h, w, levels) == want
+
+
+@pytest.mark.parametrize("levels, h, w", [(0, 720, 1280), (9, 720, 1280), (4, 7, 1280), (4, 720, 4)])
+def test_pyramid_plan_refuses_an_empty_level(levels, h, w):
+    with pytest.raises(ValueError, match="build_pyramid"):
+        tflow.pyramid_plan(h, w, levels)
+
+
+@pytest.mark.parametrize("levels", [1, 3, 4])
+def test_plain_pyramid_and_the_cpu_route_match_the_reference(levels):
+    """``build_pyramid_plain`` (the pyramid launch's specification) against
+    ``ptzjax``'s pyramid at ``test_pyramid_levels_match``'s levels and
+    sizes, within its 1e-6; on the CPU ``build_pyramids`` of two frames is
+    the plain version bit for bit and launches nothing."""
+    img = _textured_image(121, 163)
+    other = _textured_image(121, 163, seed=2)
+    ref = j_pyramid(jnp.asarray(img), levels)
+    plain = tflow.build_pyramid_plain(t(img), levels)
+    assert [tuple(g.shape) for g in plain] == [r.shape for r in ref]
+    for r, g in zip(ref, plain):
+        np.testing.assert_allclose(n(g), n(r), atol=1e-6, rtol=0)
+    before = tflow.pyramid_launches
+    both = tflow.build_pyramids([t(img), t(other)], levels)
+    assert tflow.pyramid_launches == before
+    for got, want in zip(both, (plain, tflow.build_pyramid_plain(t(other), levels))):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _cta_sum(x: torch.Tensor) -> torch.Tensor:
+    """Kernel E's sum over a patch (csrc/lk_flow.cu:cta_sum) in torch, for
+    (K, S) per-sample values, S <= 256: sample s to thread s mod 128, a
+    thread's two in order, each warp's xor butterfly, then the four warps'
+    sums in order."""
+    k, s = x.shape
+    threads = 32 * tflow.WARPS_PER_CTA
+    dealt = torch.zeros((k, 2 * threads), dtype=x.dtype)
+    dealt[:, :s] = x
+    lanes = ((0.0 + dealt[:, :threads]) + dealt[:, threads:]).reshape(k, tflow.WARPS_PER_CTA, 32)
+    idx = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., idx ^ o]
+    total = lanes[:, 0, 0]
+    for wi in range(1, tflow.WARPS_PER_CTA):
+        total = total + lanes[:, wi, 0]
+    return total
+
+
+def _kernel_order_level(prev, nxt, xy_prev, guess, patch: int, iters: int):
+    """``flow._lk_level`` as kernel E orders it: the same template and
+    gradients, every sum over the patch ``_cta_sum``, G's sums and the
+    template's mean together, the std in two passes, the sample its 4-tap
+    form (``_tap_sample``)."""
+    k, num = xy_prev.shape[0], patch * patch
+    tmpl_w = tflow._sample_patches(prev, xy_prev, patch + 2)
+    tmpl = tmpl_w[:, 1:-1, 1:-1].reshape(k, num)
+    gx = (0.5 * (tmpl_w[:, 1:-1, 2:] - tmpl_w[:, 1:-1, :-2])).reshape(k, num)
+    gy = (0.5 * (tmpl_w[:, 2:, 1:-1] - tmpl_w[:, :-2, 1:-1])).reshape(k, num)
+    gxx, gxy, gyy, st = (_cta_sum(v) for v in (gx * gx, gx * gy, gy * gy, tmpl))
+    det = gxx * gyy - gxy * gxy
+    tr = gxx + gyy
+    eig = (0.5 * (tr - torch.sqrt((tr * tr - 4.0 * det).clamp_min(0.0)))) / num
+    inv_det = torch.where(det > 1e-12, 1.0 / det.clamp_min(1e-12), 0.0)
+    mean = st / num
+    win = patch + 2 * tflow._DISP + 1
+    windows, anchor = tflow._extract_windows(nxt, guess, win, tflow._DISP + patch // 2)
+
+    def sample(g):
+        return _tap_sample(windows, g - anchor - (patch - 1) / 2.0, patch).reshape(k, num)
+
+    for _ in range(iters):
+        di = tmpl - sample(guess)
+        bx, by = _cta_sum(di * gx), _cta_sum(di * gy)
+        guess = guess + torch.stack([inv_det * (gyy * bx - gxy * by), inv_det * (gxx * by - gxy * bx)], -1)
+    sa = _cta_sum((tmpl - sample(guess)).abs())
+    sv = _cta_sum((tmpl - mean[:, None]) * (tmpl - mean[:, None]))
+    resid = (sa / num) / torch.sqrt(sv / num).clamp_min(1e-6)
+    return guess, eig, resid
+
+
+@pytest.mark.parametrize("pair", ["translation", "ptz"])
+def test_kernel_sum_order_lands_within_the_plain_tolerance(pair, monkeypatch):
+    """Kernel E's order of every sum over the patch (``_cta_sum``: a
+    thread's samples, the warp butterfly, the warps in order) and its 4-tap
+    sample, modelled in torch through the plain route's levels, forward and
+    backward: ``tracked`` equal to the plain route's and ``xy`` within its
+    1e-3 px on tracked rows. A CTA of ones sums to the count exactly."""
+    assert torch.equal(_cta_sum(torch.ones((1, 169))), torch.tensor([169.0]))
+    img0, img1 = _translation_pair() if pair == "translation" else _render_pair()[:2]
+    xy, valid = _keypoints(img0, 96)
+    pyr0, pyr1 = tflow.build_pyramid(t(img0), 4), tflow.build_pyramid(t(img1), 4)
+    opts = dict(patch=13, iters=8, min_eig=1e-3, max_residual=0.5, fb_check=True, fb_tol=1.0, border=2.0)
+    plain = tflow.lk_pyramids_plain(pyr0, pyr1, t(xy), t(valid), **opts)
+    monkeypatch.setattr(tflow, "_lk_level", _kernel_order_level)
+    model = tflow.lk_pyramids_plain(pyr0, pyr1, t(xy), t(valid), **opts)
+    tracked = plain.tracked
+    assert int(tracked.sum()) >= 30
+    assert torch.equal(model.tracked, tracked)
+    torch.testing.assert_close(model.xy[tracked], plain.xy[tracked], rtol=0, atol=1e-3)
+    torch.testing.assert_close(model.residual[tracked], plain.residual[tracked], rtol=0, atol=1e-4)
 
 
 def _tap_sample(windows: torch.Tensor, corner: torch.Tensor, patch: int) -> torch.Tensor:

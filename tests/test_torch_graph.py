@@ -224,11 +224,11 @@ def test_counter_credit_adds_the_captured_rise_once_per_replay(monkeypatch):
         match.launches += 2
 
     rise = _graphs.captured_rise(capture)
-    assert rise == (1, 1, 0, 2, 0, 0, 0)
+    assert rise == (1, 1, 0, 2, 0, 0, 0, 0)
     assert all(getattr(mod, name) == 7 for mod, name in _graphs.COUNTERS)
     for _ in range(3):
         _graphs.credit(rise)
-    assert [getattr(mod, name) for mod, name in _graphs.COUNTERS] == [10, 10, 7, 13, 7, 7, 7]
+    assert [getattr(mod, name) for mod, name in _graphs.COUNTERS] == [10, 10, 7, 13, 7, 7, 7, 7]
 
 
 def test_failed_capture_leaves_the_counters(monkeypatch):

@@ -252,8 +252,8 @@ def test_taken_counts_the_branches_and_credits_the_launches(seq, feats, eager_re
     by each branch's captured rise times its count."""
     for mod, name in _graphs.COUNTERS:
         monkeypatch.setattr(mod, name, 0)
-    rise = {"lost": (1, 0, 0, 1, 0, 0, 0), "track": (1, 1, 0, 1, 1, 0, 1), "insert+ba": (0, 0, 0, 1, 0, 0, 0),
-            "insert": (0, 0, 3, 0, 0, 0, 0)}
+    rise = {"lost": (1, 0, 0, 1, 0, 0, 0, 0), "track": (1, 1, 0, 1, 1, 0, 1, 1),
+            "insert+ba": (0, 0, 0, 1, 0, 0, 0, 0), "insert": (0, 0, 3, 0, 0, 0, 0, 0)}
     loop = Loop(seq, feats, "redetect", "map", graphs=True, **cfg)
     loop.run(1, 2)
     g = loop.graph()
