@@ -12,7 +12,7 @@ medians of 4d's tracked frames in re-detect, KLT and features mode, through
 the public entry points.)
 
 Phases, each of which raises (non-zero exit) on failure. They run in the
-order 1, 2, 4a-4c, 4e, the wall passes of 4d, 4h, 4g, 5a-5g, then the phases
+order 1, 2, 4a-4c, 4e, the wall passes of 4d, 4h, 4g, 5a-5f, 5h, 5g, then the phases
 that use the profiler: 3a-3f, the profiled passes of 4d, 4f and 5e's frames.
 After a profiler session a launch of a graph with conditional nodes makes
 the host wait for the card, so every wall of the graph route is taken
@@ -155,12 +155,23 @@ traced with inflated times, or not at all).
    the one-device mesh and through a mesh that holds the group (so the
    all-reduces and the all-gather run on NCCL), plain and robust, bitwise
    ``ba.run`` / ``ba.run_robust`` without a group, on the BA bench problem.
+   (h) ``ptzjax_torch.soak.main`` at its defaults: 10,080 continuous 720p
+   frames of its periodic 720-frame stack through ``run_segment_pixels``
+   (the graph route) at the SLAMConfig defaults: the reference's four
+   criteria (no silent drift, lost <= 1%, last-quartile fps > 0.9x the
+   first's, peak map occupancy within capacity), at least one keyframe
+   eviction at the cap of 64, the resume from the 2,400-frame checkpoint
+   bitwise for one stack, the requested and reserved memory flat after
+   the first chunk, the
+   final whole-map BA not raising the cost, and the launches equal to the
+   call sites' for ``init`` and the 10,080 frames; fps overall and by
+   quartile, pan MAE by quartile, occupancy, memory readings and seconds.
 
 The line before the last is one JSON object with the kernels' numbers
 (``launches`` from run 4b, and for kernel E's two launches (``lk_track``,
 ``build_pyramid``), which only KLT mode runs, from 4e; kernel B, on no main path since kernels E and F took its call sites,
 reads 0; ``launches_by_path`` from 4b, both 4c runs, 4e and the runs of
-5a-5c and 5e-5g); the last line is ``{"ok": true, "device": {...}}``.
+5a-5c and 5e-5h); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2059,6 +2070,70 @@ def offline_phase(tmp: str, card: str, frames: int = 192) -> dict:
     return counts
 
 
+def soak_phase(tmp: str, card: str) -> dict:
+    """5h: ``ptzjax_torch.soak.main`` at its defaults: 10,080 continuous
+    720p frames of its periodic 720-frame stack at the SLAMConfig defaults
+    (``descriptor_f_ref`` 2,000) on the graph route, checkpoints every
+    2,400. Checks the reference's four criteria, keyframe eviction at the
+    cap, the resume from the first checkpoint bitwise, requested and
+    reserved memory flat after the first chunk, the final whole-map BA, and
+    the launches against the call sites' for ``init`` and the 10,080 frames
+    (the warm-up chunk's and the resume's are not counted). Returns the
+    launch counts."""
+    from ptzjax_torch import soak
+
+    out = os.path.join(tmp, "soak")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        soak.main(["--out", out])
+        failed = None
+    except SystemExit as err:   # a failed criterion: report what the run saw, then fail
+        failed = err
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    with open(os.path.join(out, "summary.json")) as f:
+        s = json.load(f)
+    with open(os.path.join(out, "frames.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    want = expected_from_records(recs)
+    occ = [{k: o[k] for k in ("frame", "map_rays", "keyframes", "ekf_slots")} for o in s["occupancy_checkpoints"]]
+    mem = ", ".join(
+        f"{m['frame']}: {m['memory_requested']} / {m['memory_allocated']} / {m['memory_reserved']} B" for m in s["memory"]
+    )
+    fmt = ", ".join
+    print(
+        f"5h soak: {s['frames']} frames 720p at SLAMConfig defaults: criteria {s['pass']}; lost {s['frames_lost']} "
+        f"({s['lost_episodes']} episodes); pan MAE {s['pan_mae_deg']} deg, by quartile "
+        f"[{fmt(str(v) for v in s['pan_mae_deg_quartiles'])}] deg, last eighths {s['tail_eighths_pan_mae_deg']}; "
+        f"occupancy {occ}, peak map {s['peak_map_rays']}/{s['map_ray_capacity']}; keyframe inserts "
+        f"{s['keyframe_inserts']}, evictions {s['keyframe_evictions']} at cap {s['keyframe_capacity']}"
+    )
+    walls = np.array(s["chunk_wall_s"]) * 1e3
+    slow = np.argsort(walls)[::-1][:5]
+    print(
+        f"5h soak: fps {s['fps']} overall, by quartile [{fmt(str(v) for v in s['fps_quartiles'])}] "
+        f"(first/last {s['fps_first_quartile']} / {s['fps_last_quartile']}); chunk walls of {len(walls)} chunks: "
+        f"median {np.median(walls):.1f} ms, first five [{fmt(f'{w:.1f}' for w in walls[:5])}] ms, slowest "
+        f"[{fmt(f'{k}: {walls[k]:.1f}' for k in slow)}] ms [{card}]"
+    )
+    print(f"5h soak: memory requested / allocated / reserved after frame {mem} [{card}]")
+    print(f"5h soak: resume {s.get('resume')}; final BA {s['final_ba']} [{card}]")
+    print(f"5h soak: launches {counts}; phase {seconds:.1f} s, by part {s['seconds']} [{card}]")
+    check(failed is None, f"5h: the soak failed its criteria ({failed}): {s['pass']}, resume {s.get('resume')}")
+    check(s["keyframe_evictions"] >= 1, f"5h: no keyframe eviction ({s['keyframe_inserts']} inserts)")
+    check(any(o["keyframes"] == s["keyframe_capacity"] for o in occ), f"5h: the keyframe count never reached its cap: {occ}")
+    check(s["resume"]["bitwise"], f"5h: the resume at {s['resume']['from']} differs: {s['resume']}")
+    check(s["pass"]["memory"], f"5h: requested or reserved memory grew after the first chunk: {mem}")
+    ba = s["final_ba"]
+    check(np.isfinite(ba["ba_cost_after"]) and ba["ba_cost_after"] <= ba["ba_cost_before"], f"5h: final BA {ba}")
+    check(len(recs) == s["frames"], f"5h: {len(recs)} lines of frames.jsonl")
+    check(counts == want, f"5h: launches {counts}, call sites give {want}")
+    return counts
+
+
 def one_rank_nccl_phase(dev, card: str) -> dict:
     """5g: ``dist.run_sharded`` in a one-rank NCCL group on the card, on the
     BA bench problem, bitwise ``ba.run`` (and, with a Huber width,
@@ -2256,6 +2331,8 @@ def main() -> int:
         module_phase(tmp, card)
         by_path["cli_homography"] = homography_phase(tmp, card)
         by_path["cli_offline"] = offline_phase(tmp, card)
+        # 5h. the 10,080-frame soak (a graph-route wall: before the profiler)
+        by_path["soak"] = soak_phase(tmp, card)
     by_path["dist_one_rank_nccl"] = one_rank_nccl_phase(dev, card)
 
 

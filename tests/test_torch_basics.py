@@ -37,7 +37,7 @@ class TestPackage:
         )
         out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120, capture_output=True, text=True)
         names = set(out.stdout.split())
-        for mod in ("checkpoint", "eval", "kernels.flow", "convert", "kernels.harris_nms", "kernels.window_gather"):
+        for mod in ("checkpoint", "eval", "kernels.flow", "convert", "kernels.harris_nms", "kernels.window_gather", "soak"):
             assert f"ptzjax_torch.{mod}" in names
 
 

@@ -1349,6 +1349,46 @@ def test_baseline_graph_route_is_the_eager_route_bitwise(cuda_device):
     assert bool(i_g.updated.all())
 
 
+def test_soak_graph_route_is_the_eager_route_bitwise_at_small_caps(cuda_device, tmp_path):
+    """``soak.run_soak`` over 288 frames of a 96-frame periodic stack at
+    640x360 with tests/test_torch_soak.py's caps (4 keyframes, a keyframe
+    every 8 frames, 112 map rays, culls after 10 frames): on the graph route
+    every insert is the frame graph's captured insert branch, and at the
+    cap it evicts. Both routes write the same frames.jsonl and bitwise the
+    same checkpoints; both resume bitwise."""
+    from ptzjax_torch import soak
+
+    cams = soak.trajectory(96, f0=1000.0, f_amp=125.0)
+    imgs, intr = soak.render_stack(cams, W, H)
+    cfg = _small_cfg().replace(
+        max_map_rays=112, max_keyframes=4, keyframe_interval=8, ray_cull_age=10, descriptor_f_ref=1000.0
+    )
+    runs = {}
+    for graphs in (True, False):
+        out = tmp_path / str(graphs)
+        summary = soak.run_soak(
+            cfg, intr, imgs, cams, frames=288, chunk=24, checkpoint_every=96, out=str(out), device=cuda_device,
+            _graphs=graphs,
+        )
+        runs[graphs] = (summary, (out / "frames.jsonl").read_text(), out)
+    (s_g, log_g, out_g), (s_e, log_e, out_e) = runs[True], runs[False]
+    assert log_g == log_e
+    occupancy = [
+        [{k: o[k] for k in ("frame", "map_rays", "keyframes", "ekf_slots")} for o in s["occupancy_checkpoints"]]
+        for s in (s_g, s_e)
+    ]
+    assert occupancy[0] == occupancy[1]   # the memory readings differ between routes
+    for frame in (96, 192, 288):
+        with np.load(out_g / f"state_{frame:06d}.npz") as a, np.load(out_e / f"state_{frame:06d}.npz") as b:
+            assert sorted(a.files) == sorted(b.files)
+            for key in a.files:
+                assert a[key].tobytes() == b[key].tobytes(), (frame, key)
+    assert s_g["keyframe_evictions"] == s_e["keyframe_evictions"] >= 1
+    assert s_g["peak_map_rays"] == cfg.max_map_rays and s_g["frames_lost"] == 0
+    assert s_g["resume"]["bitwise"] and s_e["resume"]["bitwise"]
+    assert s_g["pass"]["memory"]
+
+
 def test_host_read_in_the_insert_program_makes_its_capture_raise(cuda_device, monkeypatch):
     """A host read put inside the insert branch: the frame graph's warm-up
     (eager) runs, the capture of its insert branch raises naming it, and so
