@@ -28,24 +28,28 @@ the four), and the frame graph nests them as the reference nests its conds
 and BA) "insert+ba"; IF(insert and not BA) "insert"}. Both outer
 predicates are set from one read of the lost flag before either branch
 runs (the lost branch writes it); the next frame reads the flag that the
-BA's drift watchdog may have set. Each branch adds 1 to its entry of the
-device vector ``taken`` and copies its FrameInfo into the frame's info
-buffer.
+BA's drift watchdog may have set. Each branch copies its FrameInfo into
+the frame's info buffer and stamps its stages into the graph's stats buffer
+(``_trace``), whose last stamp adds 1 to the branch's entry of ``taken``;
+the frame graph stamps the frame's first and last boundary around its IF
+nodes.
 
 A ``TrackGraph`` owns static buffers: the frame's inputs (the image and the
 mask where the frames have one, or the features), the carry of KLT mode
 (the previous image and keypoint table), the whole ``SlamState``, the
-insert's features, the insert predicates, the info and ``taken``. A call
-copies the caller's state (and carry) in; each frame copies its inputs in
-and launches the frame graph. A branch's tail copies the fields it changed
-back into the state buffers, and in KLT mode the frame's image and table
-into the carry (the tracked and the lost frame both move it on). The call
+insert's features, the insert predicates, the info and the stats buffer
+(``taken`` and the stamps). A call copies the caller's state (and carry)
+in; each frame copies its inputs in and launches the frame graph. A
+branch's tail copies the fields it changed back into the state buffers,
+and in KLT mode the frame's image and table into the carry (the tracked
+and the lost frame both move it on). The call
 returns fresh tensors: the caller's state and carry are never written, so
 an earlier state replayed later (the forest's rewind) gives the same
 result. Its one read of the card, at its end, gives the final lost flag
-and ``taken``, from which the launch counters are credited: the rise of
-each branch's capture times the frames that took it (``captured_rise``,
-``credit``).
+and the used part of the stats buffer: ``taken``, from which the launch
+counters are credited (the rise of each branch's capture times the frames
+that took it: ``captured_rise``, ``credit``), and the call's stamps, which
+go into its record of host spans (``_trace.Call``).
 
 At its first use the frame program runs every branch eagerly, once, on a
 stream of its own and on a copy of the buffers (the results are thrown
@@ -69,7 +73,7 @@ import weakref
 
 import torch
 
-from ptzjax_torch import _device, baselines, slam
+from ptzjax_torch import _device, _trace, baselines, slam
 from ptzjax_torch.checkpoint import tree_flatten
 from ptzjax_torch.frontend import extract_features, track_features
 from ptzjax_torch.kernels import _build, cholesky, descriptor, flow, harris_nms, match, window_gather
@@ -85,7 +89,7 @@ COUNTERS = (
 KINDS = ("redetect", "klt", "features")
 
 # the branches of the frame program, in the order of their entries in ``taken``
-BRANCHES = ("lost", "track", "insert+ba", "insert")
+BRANCHES = _trace.BRANCHES
 
 
 def _counts() -> tuple[int, ...]:
@@ -252,8 +256,8 @@ class _Assembly:
     (``TrackGraph._frame``): each appends to the graph it is called in,
     after the node before."""
 
-    def __init__(self, device, graphs: dict):
-        self.lib, self.device, self.graphs = _build.load(), device, graphs
+    def __init__(self, graphs: dict, stats: torch.Tensor):
+        self.lib, self.graphs, self.stats, self.device = _build.load(), graphs, stats, stats.device
         root = ctypes.c_void_p()
         self._check(self.lib.ptz_graph_create(ctypes.byref(root)), "create")
         self.exec = ctypes.c_void_p()
@@ -284,6 +288,14 @@ class _Assembly:
             self._at = (body, ctypes.c_void_p())
             fn()
             self._at = (graph, last)
+
+    def stamp(self, name: str) -> None:
+        """A kernel node of the stamp ``name`` (``_trace.STAMPS``)."""
+        graph, last = self._at
+        self._check(
+            self.lib.ptz_graph_add_stamp(graph, ctypes.byref(last), _trace.INDEX[name], self.stats.data_ptr()),
+            f"the stamp {name!r}",
+        )
 
     def branch(self, name: str) -> None:
         """A child-graph node holding the captured branch ``name``."""
@@ -358,7 +370,9 @@ class FrameProgram:
 
     def capture(self, owner) -> None:
         """Each branch captured on the warm-up's stream into one pool, then
-        the frame graph assembled and instantiated."""
+        the frame graph assembled and instantiated; the card's clock is
+        calibrated against the host's (``_trace.calibrate``, once a
+        device)."""
         graphs = {}
         with _set_up(self, self.device):
             pool = torch.cuda.graph_pool_handle()
@@ -366,11 +380,12 @@ class FrameProgram:
                 graphs[name], _, self.rise[name] = _capture(
                     lambda: owner._branch(name), self._stream, f"the frame graph's {name!r} branch", pool, keep=True
                 )
-            assembly = _Assembly(owner.taken.device, graphs)
-            owner._frame(assembly.cond, assembly.branch)
+            assembly = _Assembly(graphs, owner.stats)
+            owner._frame(assembly.cond, assembly.branch, assembly.stamp)
             assembly.instantiate()
         self._keep = (graphs, assembly, _workspaces())
         self.replay = assembly.launch
+        _trace.calibrate(owner.stats.device)
 
 
 class TrackGraph:
@@ -412,8 +427,12 @@ class TrackGraph:
         self.feats = None   # the insert's (xy, desc, valid), made at the warm-up
         self.info = None    # the frame's FrameInfo, made at the warm-up
         self.inserts = buf((2,), torch.bool)            # (insert and BA, insert and not BA)
-        self.taken = torch.zeros(len(BRANCHES), dtype=torch.int32, device=device)
+        self.stats = _trace.buffer(device)              # the stamps (_trace's layout)
+        self.taken = self.stats[:len(BRANCHES)]         # frames that took each branch since the load
         self.counts = dict.fromkeys(BRANCHES, 0)        # frames that took each branch, on the host
+        self.launched = 0                               # frame graphs launched since the load
+        self.clock = torch.zeros(_trace.LAST + 1, dtype=torch.int64, device=device)  # a "clock" stamp after the read
+        self._clock_at = None                           # the host's time of its launch (None: none yet)
         self.program = FrameProgram(device)
         self._tracked = None   # the track branch's features, which the insert copies
 
@@ -421,9 +440,9 @@ class TrackGraph:
         """Copy ``state`` (and in KLT mode the carry: previous image, xy,
         valid) into the buffers, and the (buffer, value) pairs ``then``
         after them; a source that is its buffer already is skipped; zero
-        ``taken``. A state field, xy or valid of another shape or dtype
-        raises, as does an image of another shape (an image's dtype is
-        converted, as every frame's is)."""
+        the stats buffer (``taken`` and the stamps). A state field, xy or
+        valid of another shape or dtype raises, as does an image of another
+        shape (an image's dtype is converted, as every frame's is)."""
         pairs = list(zip(self._bufs, tree_flatten(state)[0]))
         for dst, src in pairs:
             _check_fit(dst, src, "state field")
@@ -433,7 +452,8 @@ class TrackGraph:
                 _check_fit(dst, src, "KLT carry", dtype=k > 0)
             pairs += zip(self.carry, carry)
         _copy((d, s) for d, s in [*pairs, *then] if s is not d)
-        self.taken.zero_()
+        self.stats.zero_()
+        self.launched = 0
 
     def snapshot(self) -> tuple[slam.SlamState, list]:
         """The state buffers and the KLT table (xy, valid) as fresh tensors:
@@ -444,10 +464,10 @@ class TrackGraph:
 
     def _save(self) -> list:
         """What a branch writes, as fresh tensors: for ``_restore``."""
-        return _fresh(self._bufs + list(self.carry) + [self.taken])
+        return _fresh(self._bufs + list(self.carry) + [self.stats])
 
     def _restore(self, saved: list) -> None:
-        _copy(zip(self._bufs + list(self.carry) + [self.taken], saved))
+        _copy(zip(self._bufs + list(self.carry) + [self.stats], saved))
 
     def _frontend(self):
         """The frame's (xy, desc, valid) from the input buffers, and the
@@ -475,6 +495,7 @@ class TrackGraph:
         image and table into the carry). Returns (info, (lost, insert)
         flags, (xy, desc, valid))."""
         feats, tail = self._frontend()
+        _trace.stamp("frontend")
         s2, info, flags = slam._track_step(self.state, *feats, cfg=self.cfg, intr=self.intr)
         self._write_back(s2, tail)
         return info, flags, feats
@@ -493,70 +514,97 @@ class TrackGraph:
         on the device), then the tail (and in KLT mode the carry's).
         Returns (info, success flag)."""
         feats, tail = self._frontend()
+        _trace.stamp("frontend")
         s, info, success = slam._relocalize_step(self.state, *feats, cfg=self.cfg, intr=self.intr)
+        _trace.stamp("reloc")
         self._write_back(s, tail)
         return info, success
 
     def _branch(self, name: str) -> None:
         """What the branch ``name`` runs (and its graph captures): its
-        work, the FrameInfo copied into the info buffer (the lost and track
-        branches), and 1 added to its entry of ``taken``."""
-        info = None
-        if name == "lost":
-            info, _ = self._lost()
-        elif name == "track":
-            info, flags, self._tracked = self._step()
-            insert, ba = flags[1], slam._ba_follows(self.state, self.cfg)
-            self.inserts.copy_(torch.stack([insert & ba, insert & ~ba]))
-        else:
-            if self.feats is None:
-                self.feats = [torch.empty_like(v) for v in self._tracked]
-            _copy(zip(self.feats, self._tracked))
-            self._insert(ba=name == "insert+ba")
-        if info is not None:
-            if self.info is None:
-                self.info = type(info)(*(torch.empty_like(v) for v in info))
-            _copy(zip(self.info, info))
-        k = BRANCHES.index(name)
-        self.taken[k:k + 1].add_(1)
+        work, stamped stage by stage into the stats buffer (``_trace``), the
+        FrameInfo copied into the info buffer (the lost and track branches),
+        and the tail's stamp, which adds 1 to its entry of ``taken``."""
+        with _trace.into(self.stats, name):
+            info = None
+            if name == "lost":
+                info, _ = self._lost()
+            elif name == "track":
+                info, flags, self._tracked = self._step()
+                insert, ba = flags[1], slam._ba_follows(self.state, self.cfg)
+                self.inserts.copy_(torch.stack([insert & ba, insert & ~ba]))
+            else:
+                if self.feats is None:
+                    self.feats = [torch.empty_like(v) for v in self._tracked]
+                _copy(zip(self.feats, self._tracked))
+                self._insert(ba=name == "insert+ba")
+            if info is not None:
+                if self.info is None:
+                    self.info = type(info)(*(torch.empty_like(v) for v in info))
+                _copy(zip(self.info, info))
+            _trace.stamp("tail")
 
-    def _frame(self, cond, branch) -> None:
+    def _frame(self, cond, branch, stamp=None) -> None:
         """The frame program, with the reference's conds
         (``ptzjax/slam.py:_frame_step``) as ``cond(pred, then,
         otherwise=None)``, which runs ``then`` where the () bool ``pred``
-        holds and ``otherwise`` where it does not, and ``branch(name)``,
-        which runs a branch: the lost branch while lost, else the track
-        branch and then, on its insert predicates, the insert with or
-        without the windowed BA."""
+        holds and ``otherwise`` where it does not, ``branch(name)``, which
+        runs a branch: the lost branch while lost, else the track branch and
+        then, on its insert predicates, the insert with or without the
+        windowed BA; and ``stamp(name)`` (by default written at once), the
+        frame's first and last stamp around them."""
+        stamp = stamp or (lambda name: _trace.write(self.stats, name))
 
         def tracked():
             branch("track")
             cond(self.inserts[0], lambda: branch("insert+ba"))
             cond(self.inserts[1], lambda: branch("insert"))
 
+        stamp("frame.start")
         cond(self.state.lost, lambda: branch("lost"), tracked)
+        stamp("frame.end")
 
     def _fill(self, inputs) -> None:
         for dst, src in zip(self.inputs, inputs):
             if dst is not None:
                 dst.copy_(src)
 
-    def frame(self, *inputs) -> None:
-        """One frame from its inputs (image and mask, or xy, desc and
-        valid): the frame program's launch. The state (and carry) buffers
-        and ``info`` hold the frame's result."""
-        self._fill(inputs)
+    def launch(self) -> None:
+        """The frame program's launch on the input buffers (``_fill``):
+        the state (and carry) buffers and ``info`` then hold the frame's
+        result."""
+        self.launched += 1
         self.program(self)
 
-    def finish(self) -> bool:
-        """The call's one read of the card: the state's lost flag and
-        ``taken``; adds ``taken`` to ``counts`` and credits each branch's
-        launches. Returns the lost flag."""
-        lost, *taken = torch.cat([self.state.lost.view(1).to(torch.int32), self.taken]).tolist()
-        for name, n in zip(BRANCHES, taken):
+    def finish(self, rec: _trace.Call) -> bool:
+        """The call's one read of the card: a "clock" stamp, then the
+        state's lost flag, the last call's second "clock" stamp and the used
+        part of the stats buffer, in one copy; then, the card idle, this
+        call's second "clock" stamp, the host's time of its launch kept.
+        Marks the read's end in ``rec``, bounds the clocks' offset with the
+        stamps (``_trace.bound``; the first call after a profiler session
+        begins or ends calibrates it anew instead: ``_trace.follow``), adds
+        ``taken`` to ``counts``, credits each branch's launches and gives
+        ``rec`` the call's stamps on the host's clock. Returns the lost
+        flag."""
+        used = _trace.ROW0 + 2 * min(self.launched, _trace.ROWS)
+        _trace.write(self.stats, "clock")
+        lost, clock, *stats = torch.cat(
+            [self.state.lost.view(1).to(torch.int64), self.clock[_trace.LAST:], self.stats[:used]]
+        ).tolist()
+        rec.mark(_trace.READ)
+        read, device = rec.host[_trace.READ], self.stats.device
+        calibrated = _trace.follow(device, rec.profiled)
+        clock_at, self._clock_at = self._clock_at, time.time_ns()
+        _trace.write(self.clock, "clock")
+        if not calibrated:
+            _trace.bound(device, None if clock_at is None else (clock_at, clock), (stats[_trace.LAST], read))
+        for name, n in zip(BRANCHES, stats):
             self.counts[name] += n
             if n:
                 credit(self.program.rise[name], n)
+        rec.launched = self.launched
+        rec.read(stats, _trace.offset(device, read))
         return bool(lost)
 
 
@@ -567,7 +615,8 @@ class Runner:
     or K and D, config), kept for the life of the ``PTZSlam``. Each loop is
     its eager counterpart in ``slam.py`` with every frame launched from the
     graph's frame program, and one read of the card a call: bitwise the
-    same results."""
+    same results. Each call writes its host spans and stamps into a record
+    of ``_trace``'s ring (``_trace.Call``)."""
 
     def __init__(self, device):
         self.device = device
@@ -582,19 +631,32 @@ class Runner:
             )
         return self.graphs[key]
 
-    def _loop(self, g: TrackGraph, frames, ok):
-        """The frames (each a tuple of inputs) through ``g``: a skipped
-        frame passes the state and carry through; any other launches the
-        frame program. Returns (infos, the last frame's lost flag, from the
-        call's one read)."""
-        infos = []
+    def _loop(self, g: TrackGraph, frames, ok, rec: _trace.Call):
+        """The frames (each a tuple of inputs) through ``g``, the state
+        loaded: a skipped frame passes the state and carry through; any
+        other launches the frame program. ``rec`` takes the host marks from
+        the load's end to the read's end, and the call's stamps. Returns
+        (infos, the last frame's lost flag, from the call's one read)."""
+        ns, marks, infos = time.time_ns, rec.marks, []
+        fresh = g.program.replay is None
+        rec.mark(_trace.LOADED)
+        j = 0
         for inputs, ok_i in zip(frames, ok):
+            marks[j] = ns()
             if ok_i:
-                g.frame(*inputs)
+                g._fill(inputs)
+                marks[j + 1] = ns()
+                g.launch()
+                marks[j + 2] = ns()
                 infos.append(_clone(g.info))
             else:
+                marks[j + 1] = marks[j + 2] = marks[j]
                 infos.append(_clone(slam._skip_info(g.state)))
-        return infos, g.finish()
+            j += 3
+        rec.mark(_trace.FINISH)
+        lost = g.finish(rec)
+        rec.captured = fresh and g.program.replay is not None
+        return infos, lost
 
     def _frames(self, imgs, masks):
         imgs = _device.to_device(imgs, self.device)
@@ -604,11 +666,17 @@ class Runner:
     def run_segment_pixels(self, state: slam.SlamState, imgs, masks, frame_ok, *, cfg, intr):
         """``slam._run_segment_pixels``: returns (fresh state, stacked
         infos, the final state's lost flag)."""
+        rec = _trace.begin("redetect", imgs.shape[0])
         frames, imgs = self._frames(imgs, masks)
+        rec.mark(_trace.COPIED)
         g = self._graph("redetect", masks is not None, imgs.shape[1:], state, cfg=cfg, intr=intr)
         g.load(state)
-        infos, lost = self._loop(g, frames, slam._frame_flags(frame_ok, imgs.shape[0]))
-        return g.snapshot()[0], slam._stack(infos), lost
+        infos, lost = self._loop(g, frames, slam._frame_flags(frame_ok, imgs.shape[0]), rec)
+        state = g.snapshot()[0]
+        rec.mark(_trace.SNAPPED)
+        infos = slam._stack(infos)
+        rec.mark(_trace.RETURN)
+        return state, infos, lost
 
     def run_segment_pixels_klt(
         self, state: slam.SlamState, imgs, frame_ok, prev_img, prev_xy, prev_valid, masks, *, cfg, intr,
@@ -616,33 +684,49 @@ class Runner:
         """``slam._run_segment_pixels_klt``: returns (fresh state, stacked
         infos, fresh last xy, fresh last valid, the final state's lost
         flag)."""
+        rec = _trace.begin("klt", imgs.shape[0])
         frames, imgs = self._frames(imgs, masks)
+        rec.mark(_trace.COPIED)
         g = self._graph(
             "klt", masks is not None, imgs.shape[1:], state, cfg=cfg, intr=intr,
             carry_rows=prev_xy.shape[0],
         )
         g.load(state, carry=(prev_img, prev_xy, prev_valid))
-        infos, lost = self._loop(g, frames, slam._frame_flags(frame_ok, imgs.shape[0]))
+        infos, lost = self._loop(g, frames, slam._frame_flags(frame_ok, imgs.shape[0]), rec)
         state, (xy, valid) = g.snapshot()
-        return state, slam._stack(infos), xy, valid, lost
+        rec.mark(_trace.SNAPPED)
+        infos = slam._stack(infos)
+        rec.mark(_trace.RETURN)
+        return state, infos, xy, valid, lost
 
     def run_segment(self, state: slam.SlamState, xy_seq, desc_seq, valid_seq, frame_ok, *, cfg, intr):
         """``slam._run_segment`` (features on the card): returns (fresh
         state, stacked infos, the final state's lost flag)."""
         t = xy_seq.shape[0]
+        rec = _trace.begin("features", t)
+        rec.mark(_trace.COPIED)
         g = self._graph("features", False, (xy_seq.shape[1], desc_seq.shape[2]), state, cfg=cfg, intr=intr)
         g.load(state)
         frames = ((xy_seq[i], desc_seq[i], valid_seq[i]) for i in range(t))
-        infos, lost = self._loop(g, frames, slam._frame_flags(frame_ok, t))
-        return g.snapshot()[0], slam._stack(infos), lost
+        infos, lost = self._loop(g, frames, slam._frame_flags(frame_ok, t), rec)
+        state = g.snapshot()[0]
+        rec.mark(_trace.SNAPPED)
+        infos = slam._stack(infos)
+        rec.mark(_trace.RETURN)
+        return state, infos, lost
 
     def step(self, state: slam.SlamState, xy, desc, valid, *, cfg, intr):
         """``slam._frame_step`` on one frame of features: returns (fresh
         state, its FrameInfo, the new state's lost flag)."""
+        rec = _trace.begin("features", 1)
+        rec.mark(_trace.COPIED)
         g = self._graph("features", False, (xy.shape[0], desc.shape[1]), state, cfg=cfg, intr=intr)
         g.load(state)
-        infos, lost = self._loop(g, [(xy, desc, valid)], [True])
-        return g.snapshot()[0], infos[0], lost
+        infos, lost = self._loop(g, [(xy, desc, valid)], [True], rec)
+        state = g.snapshot()[0]
+        rec.mark(_trace.SNAPPED)
+        rec.mark(_trace.RETURN)
+        return state, infos[0], lost
 
 
 class VOGraph:

@@ -1,16 +1,14 @@
-"""Evaluation: trajectory accuracy, reprojection error, timing and traces.
-Port of ``ptzjax/eval.py``.
+"""Evaluation: trajectory accuracy and reprojection error. Port of
+``ptzjax/eval.py`` (its timer and trace exporter are not ported: the
+benchmark, ``ptzbench/``, times the port, and ``_trace`` traces it).
 
-Per-frame |delta pan| / |delta tilt| / |delta f| against ground truth, the
-reprojection RMSE over a shared ray set, and device timing fenced by
-``torch.cuda.synchronize()``.
+Per-frame |delta pan| / |delta tilt| / |delta f| against ground truth, and
+the reprojection RMSE over a shared ray set.
 """
 
 from __future__ import annotations
 
-import time
-from pathlib import Path
-from typing import Any, Callable, NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -86,48 +84,6 @@ def reprojection_rmse(
     e2 = ((a - b) ** 2).sum(-1)
     per_frame = torch.sqrt(torch.where(ok, e2, 0.0).sum(-1) / ok.sum(-1).clamp_min(1))
     return float(torch.sqrt((per_frame**2).mean()))
-
-
-class Timing(NamedTuple):
-    """Synchronize-fenced timing of a device computation."""
-
-    mean_ms: float
-    best_ms: float
-    reps: int
-
-
-def time_fn(fn: Callable[[], Any], reps: int = 5, warmup: int = 1) -> Timing:
-    """Host-clock time of ``fn()`` to the end of its device work (each call
-    fenced by ``torch.cuda.synchronize()``), after ``warmup`` calls. A
-    device timing: raises where there is no CUDA device."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("time_fn: no CUDA device; it times work on the card")
-    for _ in range(warmup):
-        fn()
-        torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    return Timing(mean_ms=float(np.mean(times) * 1e3), best_ms=float(np.min(times) * 1e3), reps=reps)
-
-
-def profile_trace(fn: Callable[[], Any], log_dir: str) -> Any:
-    """Run ``fn`` under ``torch.profiler`` (host and, with a card, CUDA
-    activity) and write a Chrome trace into ``log_dir``; returns fn's result
-    after its device work has finished."""
-    from torch.profiler import ProfilerActivity, profile
-
-    cuda = torch.cuda.is_available()
-    with profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
-        out = fn()
-        if cuda:
-            torch.cuda.synchronize()
-    Path(log_dir).mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(Path(log_dir) / f"trace_{time.strftime('%Y%m%d_%H%M%S')}.json"))
-    return out
 
 
 def evaluate_run(infos, gt_cameras, intr: Intrinsics, width: float, height: float) -> dict[str, Any]:

@@ -123,6 +123,8 @@ def load() -> ctypes.CDLL:
             ("ptz_graph_add_set", [vp, vpp, ull, ull, ci, vp]),
             ("ptz_graph_add_if", [vp, vpp, ull, vpp]),
             ("ptz_graph_add_child", [vp, vpp, vp]),
+            ("ptz_graph_add_stamp", [vp, vpp, ci, vp]),
+            ("ptz_stamp", [ci, vp, vp]),
             ("ptz_graph_instantiate", [vp, vpp, cip, cip, ci]),
             ("ptz_graph_launch", [vp, ci, vp]),
             ("ptz_graph_destroy", [vp, vp]),

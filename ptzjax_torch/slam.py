@@ -18,7 +18,8 @@ step ``_track_step``, the insert ``_insert_step`` and the lost frame
 eager route (the CPU's, and the card's with ``PTZSlam(..., _graphs=False)``)
 is a Python loop over frames in which each ``lax.cond`` is a Python ``if``
 on a flag read from the device (see ``_frame_step``). All other decisions
-stay on the device as selects.
+stay on the device as selects. On the graph route the steps' stages are
+stamped (``_trace.stamp``, which does nothing on the eager route).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ptzjax_torch import _device
+from ptzjax_torch import _device, _trace
 from ptzjax_torch import ba as balib
 from ptzjax_torch import ekf as ekflib
 from ptzjax_torch import mapstore
@@ -341,6 +342,7 @@ def _track_frame(state: SlamState, xy, desc, valid, *, cfg, intr) -> tuple[SlamS
     # 1. predict
     ekf_state = ekflib.predict(state.ekf, cfg)
     pose = ekf_state.pose
+    _trace.stamp("predict")
 
     # 2. project active slots to predicted pixels
     pred_pix = project_rays(pose, ekf_state.rays, intr)
@@ -371,6 +373,7 @@ def _track_frame(state: SlamState, xy, desc, valid, *, cfg, intr) -> tuple[SlamS
         matched_any = m.ok
         consensus_rej = torch.zeros_like(m.ok)
     obs, obs_mask = matchlib.scatter_to_slots(m, xy, ekf_state.capacity)
+    _trace.stamp("association")
 
     # 4. joint EKF update + slot lifecycle (count CONSECUTIVE consensus
     # rejections per slot; retire at cfg.max_rejected)
@@ -383,6 +386,7 @@ def _track_frame(state: SlamState, xy, desc, valid, *, cfg, intr) -> tuple[SlamS
     ekf_state = ekf_state._replace(rej=torch.where(rejected, ekf_state.rej + 1, 0))
     ekf_state = ekflib.retire_lost(ekf_state, cfg)
     state = state._replace(ekf=ekf_state)
+    _trace.stamp("update")
 
     # refresh slot descriptors from gate-confirmed observations
     tgt = torch.where(m.ok, m.idx, n)
@@ -414,6 +418,7 @@ def _track_frame(state: SlamState, xy, desc, valid, *, cfg, intr) -> tuple[SlamS
     )
 
     max_ov = mapstore.max_overlap_with_keyframes(state.kf, pose, cfg.image_width, cfg.image_height)
+    _trace.stamp("map")
     state = state._replace(lost=stats.lost, frame_idx=state.frame_idx + 1)
     info = FrameInfo(
         pose=state.ekf.pose,
@@ -455,6 +460,7 @@ def _insert_keyframe(state: SlamState, xy, desc, valid, *, cfg, intr) -> SlamSta
     views = mapstore.add_rows_drop(state.rays.views, torch.where(ev_fv, ev_ids, mcap), -1)
     views = mapstore.add_rows_drop(views, torch.where(feat_valid, ray_ids, mcap), 1)
     rays = state.rays._replace(views=views)
+    _trace.stamp("keyframe")
 
     rays = mapstore.cull_rays(rays, state.ekf.ray_ids, state.frame_idx, cfg.ray_cull_age)
     rays, remap = mapstore.merge_rays(
@@ -464,6 +470,7 @@ def _insert_keyframe(state: SlamState, xy, desc, valid, *, cfg, intr) -> SlamSta
     ekf_ids = torch.where(
         state.ekf.ray_ids >= 0, remap[state.ekf.ray_ids.clamp(0, mcap - 1)], -1
     )
+    _trace.stamp("merge")
     return state._replace(
         kf=kf._replace(ray_ids=kf_ids), rays=rays, ekf=state.ekf._replace(ray_ids=ekf_ids)
     )
@@ -687,7 +694,10 @@ def _insert_step(state: SlamState, xy, desc, valid, *, cfg, intr, ba: bool) -> S
     ``_windowed_ba`` where ``ba``. On the card ``_graphs`` captures it as
     the frame graph's insert branch, one for each value of ``ba``."""
     state = _insert_keyframe(state, xy, desc, valid, cfg=cfg, intr=intr)
-    return _windowed_ba(state, cfg=cfg, intr=intr) if ba else state
+    if ba:
+        state = _windowed_ba(state, cfg=cfg, intr=intr)
+        _trace.stamp("ba")
+    return state
 
 
 def _keyframe(state: SlamState, xy, desc, valid, *, cfg, intr) -> tuple[SlamState, bool]:

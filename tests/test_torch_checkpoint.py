@@ -219,13 +219,3 @@ def test_evaluate_run_matches(jax_run, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         teval.reprojection_rmse(ref.pose, cams[1:], port_intr(intr), 640, 360)
-
-
-def test_time_fn_needs_the_card_and_profile_trace_writes_a_trace(tmp_path, monkeypatch):
-    out = teval.profile_trace(lambda: torch.ones(3) * 2, str(tmp_path / "trace"))
-    assert torch.equal(out, torch.full((3,), 2.0))
-    traces = list((tmp_path / "trace").glob("*.json"))
-    assert len(traces) == 1 and traces[0].stat().st_size > 0
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        teval.time_fn(lambda: torch.ones(3))

@@ -1389,6 +1389,150 @@ def test_soak_graph_route_is_the_eager_route_bitwise_at_small_caps(cuda_device, 
     assert s_g["pass"]["memory"]
 
 
+# the stamps of the frame graph and the host spans of its calls (_trace)
+
+STAGES = {
+    "track": ["track.frontend", "track.predict", "track.association", "track.update", "track.map", "track.tail"],
+    "insert+ba": ["insert+ba.keyframe", "insert+ba.merge", "insert+ba.ba", "insert+ba.tail"],
+    "insert": ["insert.keyframe", "insert.merge", "insert.tail"],
+    "lost": ["lost.frontend", "lost.reloc", "lost.tail"],
+}
+
+
+def test_stamp_launches_per_branch_are_the_stage_boundaries(cuda_device, monkeypatch):
+    """The capture of each branch launches its stages' stamps, in order,
+    and the frame graph holds the frame's first and last stamp around its
+    IF nodes: on the card, 8 stamps a tracked frame."""
+    from ptzjax_torch import _graphs, _trace
+
+    log, captured, nodes = [], {}, []
+    write, capture, node = _trace.write, _graphs._capture, _graphs._Assembly.stamp
+
+    def spy_capture(fn, stream, what, pool=None, keep=False):
+        start = len(log)
+        out = capture(fn, stream, what, pool, keep)
+        captured[what] = log[start:]
+        return out
+
+    def spy_node(self, name):
+        nodes.append(name)
+        node(self, name)
+
+    monkeypatch.setattr(_trace, "write", lambda stats, name: (log.append(name), write(stats, name))[1])
+    monkeypatch.setattr(_graphs, "_capture", spy_capture)
+    monkeypatch.setattr(_graphs._Assembly, "stamp", spy_node)
+    imgs, cams, intr = _render(30)
+    frames = torch.from_numpy(imgs).to(cuda_device)
+    slam = PTZSlam(_small_cfg(), intr)
+    state = slam.init(*extract_features(frames[0], slam.cfg), cams[0])
+    slam.run_segment_pixels(state, frames[1:3])
+    assert captured == {f"the frame graph's {b!r} branch": STAGES[b] for b in _graphs.BRANCHES}
+    assert nodes == ["frame.start", "frame.end"]
+
+
+def _stamp_times(rec):
+    """Each stamp's (name, time on the host's clock) of a one-frame call's
+    record, rebuilt from its first stamp and the stage sums, in the order
+    the frame ran them (its branch counts say which)."""
+    from ptzjax_torch import _graphs, _trace
+
+    names = ["frame.start"]
+    for b in ("lost", "track", "insert+ba", "insert"):
+        names += STAGES[b] * rec.counts[_graphs.BRANCHES.index(b)]
+    names.append("frame.end")
+    t, out = rec.rows[0], [("frame.start", rec.rows[0])]
+    for name in names[1:]:
+        t += rec.sums[_trace.INDEX[name]]
+        out.append((name, t))
+    assert out[-1][1] == rec.rows[1]
+    return out
+
+
+def test_stamped_graph_route_is_the_eager_route_and_its_record_adds_up(cuda_device):
+    """``bench.py``'s 720p sequence with the 140-146 blackout: frames 100-160
+    in one call after 1-99 (the insert at 120, the lost frames, the
+    recovery), bitwise the eager route with the stamps in; the call's
+    record counts the branches as ``taken`` does, its stage sums add up to
+    its frames' spans, its frames follow one another, and on the host's
+    clock the first stamp comes after the call's entry and the last before
+    its return."""
+    from ptzjax_torch import _trace
+
+    imgs, cams, intr = _blackout_bench_frames()
+    frames = torch.from_numpy(imgs).to(cuda_device)
+    out = {}
+    for graphs in (True, False):
+        slam = PTZSlam(SLAMConfig(), intr, _graphs=graphs)
+        state = slam.init(*extract_features(frames[0], slam.cfg), cams[0])
+        state, _ = slam.run_segment_pixels(state, frames[1:100])
+        out[graphs] = slam.run_segment_pixels(state, frames[100:161]), slam
+    ((s_g, i_g), slam_g), ((s_e, i_e), _) = out[True], out[False]
+    assert _bitwise(i_g, i_e) and _bitwise(s_g, s_e)
+    rec = _trace.RING.records()[-1]
+    (g,) = slam_g._graphs.graphs.values()
+    assert rec.frames == rec.launched == 61 and not rec.captured and rec.counts == g.taken.tolist()
+    spans = [b - a for a, b in zip(rec.rows[::2], rec.rows[1::2])]
+    assert len(spans) == 61 and min(spans) > 0 and sum(rec.sums) == sum(spans)
+    assert all(a <= b for a, b in zip(rec.rows, rec.rows[1:]))
+    assert rec.host[_trace.ENTRY] < rec.rows[0] and rec.rows[-1] < rec.host[_trace.RETURN]
+
+
+def test_every_stamp_runs_where_the_profiler_sees_its_kernel(cuda_device):
+    """One-frame calls of a tracked, an insert and a lost frame, replayed
+    from kept states under a profiler session, the frame graph captured
+    before it: each stamp the calls' records give (rebuilt from the first
+    stamp and the sums, moved onto the host's clock by the program's
+    offset) has a profiler record of its kernel, in the same order, that
+    starts within 50 us of it; and at least two "clock" stamps a call (the
+    first call in a session calibrates the clock anew). The profiler now
+    and then times the kernels of a frame graph's IF bodies late:
+    one session of up to three, each after an unprofiled call, has to
+    agree. After the other graph tests: a profiler session makes every
+    later launch of the frame graph wait."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ptzjax_torch import _trace
+
+    imgs, cams, intr = _render(30)
+    imgs[14:18] = 0.0
+    frames = torch.from_numpy(imgs).to(cuda_device)
+    slam = PTZSlam(_small_cfg(keyframe_interval=6), intr)
+    state = slam.init(*extract_features(frames[0], slam.cfg), cams[0])
+    kept, kinds = {}, {}
+    for f in range(1, 30):
+        kept[f] = state
+        state, info = slam.run_segment_pixels(state, frames[f:f + 1])
+        kinds.setdefault("lost" if int(info.event[0]) == 1 else "insert" if bool(info.keyframe[0]) else "track", f)
+    assert set(kinds) == {"track", "insert", "lost"}, kinds
+    picks = [kinds["track"], kinds["insert"], kinds["lost"]]
+    worst = []
+    for _ in range(3):
+        slam.run_segment_pixels(kept[picks[0]], frames[picks[0]:picks[0] + 1])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for f in picks:
+                slam.run_segment_pixels(kept[f], frames[f:f + 1])
+            torch.cuda.synchronize()
+        records = [r for r in _trace.RING.records() if r.profiled][-3:]
+        want = [s for r in records for s in _stamp_times(r)]
+        seen = sorted(
+            (e.start_ns(), re.search(r"stamp_(\w+)\(", e.name()).group(1))
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and "stamp_" in e.name()
+        )
+        clocks = [s for s in seen if s[1] == "clock"]   # two a call around its read, and the calibration anew
+        seen = [s for s in seen if s[1] != "clock"]
+        assert len(clocks) >= 2 * len(picks)
+        assert [name for _, name in seen] == [n.replace(".", "_").replace("+", "_") for n, _ in want]
+        worst.append(max(abs(t - start) for (_, t), (start, _) in zip(want, seen)))
+        if worst[-1] <= 50_000:
+            break
+    assert min(worst) <= 50_000, worst
+
+
 def test_host_read_in_the_insert_program_makes_its_capture_raise(cuda_device, monkeypatch):
     """A host read put inside the insert branch: the frame graph's warm-up
     (eager) runs, the capture of its insert branch raises naming it, and so

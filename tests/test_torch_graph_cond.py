@@ -58,8 +58,8 @@ def _kinds(infos) -> dict:
 
 
 class Recorder:
-    """``cond`` and ``branch`` that record the program they are called
-    with, as ``_Assembly`` builds it."""
+    """``cond``, ``branch`` and ``stamp`` that record the program they are
+    called with, as ``_Assembly`` builds it."""
 
     def __init__(self):
         self.log = []
@@ -75,25 +75,31 @@ class Recorder:
     def branch(self, name):
         self.log.append(("branch", name))
 
+    def stamp(self, name):
+        self.log.append(("stamp", name))
+
 
 def test_frame_program_nests_the_reference_conds(seq):
-    """``TrackGraph._frame``: one read of the lost flag sets both outer
-    conditions before either branch; IF(lost) the lost branch; IF(not lost)
-    the track branch, then IF(insert and BA) and IF(insert and not BA) on
-    the two insert predicates the track branch writes."""
+    """``TrackGraph._frame``: the frame's first stamp; one read of the lost
+    flag sets both outer conditions before either branch; IF(lost) the lost
+    branch; IF(not lost) the track branch, then IF(insert and BA) and
+    IF(insert and not BA) on the two insert predicates the track branch
+    writes; the frame's last stamp."""
     loop = Loop(seq, None, "redetect")
     g = _graphs.TrackGraph(loop.state, (180, 320), cfg=loop.slam.cfg, intr=loop.slam.intr, device=torch.device("cpu"))
     rec = Recorder()
-    g._frame(rec.cond, rec.branch)
+    g._frame(rec.cond, rec.branch, rec.stamp)
     log = [(a, b if isinstance(b, str) else b.data_ptr()) for a, b in rec.log]
     ins = g.inserts.data_ptr()
     assert log == [
+        ("stamp", "frame.start"),
         ("set", g.state.lost.data_ptr()),
         ("if", "{"), ("branch", "lost"), ("if", "}"),
         ("if not", "{"), ("branch", "track"),
         ("set", ins), ("if", "{"), ("branch", "insert+ba"), ("if", "}"),
         ("set", ins + 1), ("if", "{"), ("branch", "insert"), ("if", "}"),
         ("if not", "}"),
+        ("stamp", "frame.end"),
     ]
 
 
