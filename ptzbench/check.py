@@ -20,18 +20,21 @@ reference over each kept segment on the same frames and ``compare`` gives
 the numbers, each the worst over the segments. A frame "tracked" on a side
 is one it did not report lost and whose pose is finite; a segment's "calm
 prefix" is its frames before the first that either side lost or
-relocalized.
+relocalized; its "locked prefix" is the calm prefix cut, after the first
+``STEP_FRAMES`` frames, at the first frame whose innovation RMS in the
+reference passes ``LOCK_PX``: where the reference itself has lost its lock
+on the scene.
 
 - ``step_gap_rad``: the largest pan or tilt difference over the segment's
   first ``STEP_FRAMES`` frames, infinite where a side lost one of them that
   the other tracked: steps from the same state, where only rounding parts
   the two sides;
-- ``pose_gap_p50_rad``: the median pan or tilt difference over the calm
+- ``pose_gap_p50_rad``: the median pan or tilt difference over the locked
   prefix;
 - ``bad_frame_pct``: the share of the segment's frames that are wrong on
   one side: tracked on one side only (anywhere in the segment, relocalized
-  frames included), or, in the calm prefix, tracked on both with a pan or
-  tilt difference over ``BAD_RAD``;
+  frames included), or, in the locked prefix, tracked on both with a pan
+  or tilt difference over ``BAD_RAD``;
 - ``kf_gap_rad``: the stores at the end of a segment in which neither side
   lost or relocalized a frame: the largest pan or tilt difference between
   the two sides' poses of the keyframes either side wrote in the segment
@@ -44,10 +47,20 @@ a loss, and a runaway magnifies rounding; a relocalization then re-seeds
 the tracker from a discrete solve (a focal-grid vote, an inlier set), and
 in KLT mode a track's forward-backward test can flip. Two sound runs whose
 rounding differs part there, by up to 0.09 rad, and their maps grow
-apart. Hence the poses are compared only over the calm prefix, lost flags
-over the whole segment, and the stores only where the segment had no
-loss. The ray store is printed as a look (``_map_unmatched_pct``) with the
-largest gaps and the lost-flag mismatches (see ``PERF.md``).
+apart. A lock can also fail on both sides at one frame, some tens of frames
+before either reports it lost: the matches the update uses fall from ~245
+to ~60 and the innovation RMS climbs from ~0.2 px to 2-5 px while the
+focal jumps by a sixth; from there the two sides part by 1e-3 rad and
+more, a rounding magnified, not a fault. Hence the poses are compared
+only over the locked prefix, lost flags over the whole segment, and the
+stores only where the segment had no loss. The ray store is printed as a
+look (``_map_unmatched_pct``) with the largest gaps and the lost-flag
+mismatches (see ``PERF.md``).
+
+At several genlocked cameras (a configuration's ``cameras``) each camera
+has its own ``Keeper`` and its own ``Replay``, and the reference replays
+each camera's segments alone (``check_cameras``); each number is the worst
+over all cameras' segments, under the cell's one ``limits`` file.
 
 A cell compares the numbers its ``limits/<cell>.json`` names, each at or
 under its limit; which, and the readings each limit was set from, are in
@@ -72,6 +85,8 @@ from ptzbench.reference import slam as ref_slam
 RAY_TOL = 1e-3     # radians: ~2 px at the cells' focal of 1,750-2,250 px
 BAD_RAD = 5e-3     # radians: ~10 px, a pose a viewer sees off
 STEP_FRAMES = 3    # a segment's first frames: steps from the same state
+LOCK_PX = 0.75     # px: the reference's innovation RMS past which it has lost its lock
+                   # (a tracked frame's is ~0.2, under 0.45 in 99.9 of 100)
 NUMBERS = ("step_gap_rad", "pose_gap_p50_rad", "bad_frame_pct", "kf_gap_rad")
 _REF_TYPES = {
     "SlamState": ref_slam.SlamState, "EKFState": ref_ekf.EKFState,
@@ -213,6 +228,15 @@ def frame_table(prog_infos, ref_infos) -> dict:
     return {"p_ok": p_ok, "r_ok": r_ok, "gap": gap, "focal": focal, "event": event}
 
 
+def locked_frames(ref_infos, calm: int) -> int:
+    """The locked prefix's length: ``calm`` cut at the first frame after
+    the first ``STEP_FRAMES`` whose innovation RMS in the reference (never
+    the program's) passes ``LOCK_PX``."""
+    over = ref_infos.innovation_rms.double().cpu() > LOCK_PX
+    over[:STEP_FRAMES] = False
+    return min(calm, int(over.to(torch.int64).argmax())) if over.any() else calm
+
+
 def compare(prog_infos, ref_infos, prog_end, ref_end, start_kf=None) -> dict:
     """The numbers of one segment (see the module's docstring), and, under
     names that start with ``_``, what the look at a reading needs: the
@@ -223,17 +247,19 @@ def compare(prog_infos, ref_infos, prog_end, ref_end, start_kf=None) -> dict:
     both, one = p_ok & r_ok, p_ok ^ r_ok
     n = len(gap)
     calm = int(event.to(torch.int64).argmax()) if event.any() else n
+    locked = locked_frames(ref_infos, calm)
     step = gap[:STEP_FRAMES][(p_ok | r_ok)[:STEP_FRAMES]]
     bad = one.clone()
-    bad[:calm] |= gap[:calm] > BAD_RAD
+    bad[:locked] |= gap[:locked] > BAD_RAD
     quiet = calm == n     # no loss or relocalization on either side
     kgap, kmiss = kf_gap(prog_end.kf, ref_end.kf, start_kf) if quiet else (0.0, 0)
     return {
         "step_gap_rad": float(step.max()) if step.numel() else 0.0,
-        "pose_gap_p50_rad": _upper_median(gap[:calm]),
+        "pose_gap_p50_rad": _upper_median(gap[:locked]),
         "bad_frame_pct": 100.0 * int(bad.sum()) / max(n, 1),
         "kf_gap_rad": kgap,
         "_calm_frames": calm,
+        "_locked_frames": locked,
         "_stores_compared": int(quiet),
         "_pose_gap_max_rad": float(gap[:calm].max()) if calm else 0.0,
         "_focal_gap_p50_rel": _upper_median(focal[:calm]),
@@ -357,6 +383,29 @@ def check(rp: Replay, segments: list[Segment], device, control: bool = False,
             if frames is not None:
                 frames.append(frames_row(seg, "control", c_infos, infos, c_end, end, start_kf))
     return worst(rows), rows, (worst_all(ctl_rows) if control else None)
+
+
+def check_cameras(runs: list, device, control: bool = False,
+                  frames: list | None = None) -> tuple[dict, list[dict], dict | None]:
+    """``check`` over every camera of a run, ``runs`` holding each camera's
+    (``Replay``, kept segments): the reference replays each camera alone,
+    one after another (the cameras share nothing, so camera k through the
+    reference gives camera k's answers). Each number is the worst over all
+    cameras' segments; at several cameras each segment's row and frame
+    table names its camera."""
+    numbers, rows, ctls = [], [], []
+    for k, (rp, segments) in enumerate(runs):
+        tables: list | None = None if frames is None else []
+        nums, got, ctl = check(rp, segments, device, control, tables)
+        tag = {"camera": k} if len(runs) > 1 else {}
+        numbers.append(nums)
+        rows += [{**tag, **r} for r in got]
+        if frames is not None:
+            frames += [{**tag, **r} for r in tables]
+        if ctl is not None:
+            ctls.append(ctl)
+    worst_nums = {name: max(n[name] for n in numbers) for name in NUMBERS}
+    return worst_nums, rows, ({k: max(c[k] for c in ctls) for k in ctls[0]} if ctls else None)
 
 
 def verdict(numbers: dict, limits: dict) -> tuple[bool, dict]:

@@ -19,10 +19,22 @@ open loop sends each call at its due time (``rate_fps`` frames a second,
 from the window's start). The shot lengths are the mix's lists, in an
 order the seed draws anew every cycle, so every seed does the same work
 in another order.
+
+A configuration may run several genlocked cameras (its ``cameras`` key),
+each a stream of its own. Camera 0 is the stream above, bit for bit: the
+rng ``[seed, 17]``, its phase, shots and panoramas. Camera k >= 1 draws
+its phase, shots and away starts from the rng ``[seed, 17, k]``, and
+renders on panoramas of its own, whose texture seeds come from the mix's
+``scene`` and k alone (``camera_scene``): another view of the production,
+the same for every seed, so that every seed still does the same work.
+Genlock puts every camera's frame t on the same tick: in an open loop all
+cameras' calls fall due together (``genlocked``).
 """
 
 from __future__ import annotations
 
+import heapq
+import itertools
 from typing import Iterator, NamedTuple
 
 import numpy as np
@@ -45,17 +57,28 @@ class Call(NamedTuple):
     tags: tuple
 
 
-class Traffic:
-    """The calls of one run of ``mix`` under ``seed``."""
+def camera_scene(texture_seed: int, camera: int) -> int:
+    """The texture seed of camera ``camera``'s panorama in place of the
+    scene's ``texture_seed``: the scene's own for camera 0, one drawn from
+    (texture seed, camera) for the others."""
+    if camera == 0:
+        return int(texture_seed)
+    return int(np.random.default_rng([int(texture_seed), 23, int(camera)]).integers(2**31))
 
-    def __init__(self, mix: dict, seed: int):
+
+class Traffic:
+    """The calls of one run of ``mix`` under ``seed``, for the camera
+    ``camera`` of a deployment (0, the only one, where it has one)."""
+
+    def __init__(self, mix: dict, seed: int, camera: int = 0):
         self.mix = mix
         self.chunk = int(mix["chunk"])
         self.rate = mix.get("rate_fps")
         if mix["loop"] not in ("closed", "open") or (mix["loop"] == "open") != (self.rate is not None):
             raise ValueError(f"traffic: loop {mix['loop']!r} with rate_fps {self.rate!r}")
-        self.rng = np.random.default_rng([int(seed), 17])
-        self.scene = {k: int(v) for k, v in mix["scene"].items()}
+        self.camera = int(camera)
+        self.rng = np.random.default_rng([int(seed), 17] + ([self.camera] if self.camera else []))
+        self.scene = {k: camera_scene(v, self.camera) for k, v in mix["scene"].items()}
         path = mix["path"]
         self.stack = int(path["stack"])
         self.phase = int(self.rng.integers(self.stack))
@@ -124,3 +147,14 @@ class Traffic:
         """The set-up's call: the first call of the stream (its result is
         thrown away)."""
         return next(self.calls())
+
+
+def genlocked(traffics: list, seconds: float) -> Iterator[tuple[int, Call]]:
+    """An open loop's calls of every camera (one ``Traffic`` each) that
+    fall due within ``seconds`` of the window's start, as (camera, call), in
+    the order they fall due, cameras in order on a tick they share."""
+    def due(k, tr):
+        return ((c.due_s, k, c) for c in itertools.takewhile(lambda c: c.due_s < seconds, tr.calls()))
+
+    for _, k, call in heapq.merge(*(due(k, tr) for k, tr in enumerate(traffics))):
+        yield k, call

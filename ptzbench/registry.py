@@ -4,7 +4,9 @@ and entries, never by editing a file:
 
 - ``BENCHMARK.json`` at the root: the cells, configurations and metrics;
 - a configuration's file (its ``file`` entry): the deployment
-  (``slam``: ``SLAMConfig``'s fields; ``frontend``; ``width``, ``height``);
+  (``slam``: ``SLAMConfig``'s fields; ``frontend``; ``width``, ``height``;
+  ``cameras``, the genlocked cameras on the card, one ``PTZSlam`` each,
+  1 where the file has no such key);
 - ``ptzbench/traffic/<traffic>.json``: a traffic mix, read by
   ``generator.Traffic``;
 - ``ptzbench/metrics/<metric>.py``: a per-layer metric's reader, a function

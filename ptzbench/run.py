@@ -15,8 +15,17 @@ makes every later launch of the frame graph wait for the card). Then the
 program is freed and the reference replays the kept segments
 (``check.py``).
 
+A configuration with ``cameras`` N > 1 runs N genlocked cameras on the
+card (``Camera``): each its own frames (``generator.py``), its own
+``PTZSlam`` on a CUDA stream of its own, made and warmed one camera after
+another in set-up, and its own host thread in the window; in an open loop
+every camera's frame t falls due at the same tick. ``attempted`` and
+``failed`` are summed over the cameras, ``fps`` is all cameras' frames
+over the window's wall, ``latency_p95_ms`` the p95 over all cameras'
+frames, and each number of the check the worst over all cameras.
+
 The last line of standard output is the result: ``correct``,
-``attempted`` (main-camera frames offered), ``failed`` (those the program
+``attempted`` (main-stack frames offered), ``failed`` (those the program
 returned no tracked pose for: lost, non-finite or raised), ``metrics``
 (the cell's end-to-end metrics, or with ``--trace 1`` its per-layer
 metrics), ``device``, with ``--trace 1`` ``breakdown``, ``look`` (every
@@ -35,6 +44,7 @@ import time
 T_IMPORT = time.perf_counter()
 
 import argparse  # noqa: E402
+import contextlib  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
@@ -85,6 +95,7 @@ class View(NamedTuple):
     width: int
     height: int
     sample: object         # k -> [(previous frame, frame, pose)] from the stretch, on the host
+    cameras: int           # the genlocked cameras: frames, walls_s and both branch counts cover them all
 
 
 class Stream:
@@ -146,14 +157,192 @@ def power_limit() -> str:
         return "unknown"
 
 
+class Camera:
+    """One camera of a run: its traffic and frames, its program with its
+    state and carry, and what its calls in the window gave. ``cuda`` is
+    its CUDA stream (None at one camera: the current stream)."""
+
+    def __init__(self, k: int, traffic, stream: Stream, cuda=None):
+        self.k, self.traffic, self.stream, self.cuda = k, traffic, stream, cuda
+        self.img0, self.pose0 = stream.frame("main", 0)
+        self.fields = self.prog = self.keeper = None
+        self.state = self.carry = self.state0 = self.carry0 = self.trace_start = None
+        self.counts0: dict = {}
+        self.log: list = []          # (call, wall seconds) of each call of the window
+        self.latencies: list = []    # open loop: due to pose on the host, seconds a frame
+        self.late: list = []         # open loop: how late each call was sent
+        self.attempted = self.failed = self.lost = 0
+        self.t_end: float | None = None
+        self.stretch: list = []      # the traced replay's (call, wall in the window)
+        self.replayed: dict = {}     # the replay's branch counts
+
+    def on_stream(self):
+        """The context in which the camera's work runs: its CUDA stream."""
+        if self.cuda is None:
+            return contextlib.nullcontext()
+        import torch
+
+        return torch.cuda.stream(self.cuda)
+
+    def step(self, call, due: float | None = None) -> None:
+        """One call of the window (``due``: its due time on
+        ``time.perf_counter``'s clock, in an open loop)."""
+        trace_from = self.traffic.mix["trace"]["from"]
+        if self.trace_start is None and trace_from.startswith("tag:") and trace_from[4:] in call.tags:
+            self.trace_start = (len(self.log), self.state, self.carry)
+        self.keeper.before(call, self.state, self.carry, first=not self.log)
+        t_call = time.perf_counter()
+        self.state, self.carry, infos = self.prog.call(self.state, self.carry, self.stream.frames([call]))
+        t_end = time.perf_counter()
+        self.keeper.after(call, infos, self.state)
+        self.log.append((call, t_end - t_call))
+        self.t_end = t_end
+        if due is not None:
+            self.late.append(t_call - due)
+            self.latencies.extend([t_end - due] * call.count)
+        self.lost += int(infos.lost.sum())
+        if call.source == "main":
+            self.attempted += call.count
+            bad = infos.lost.bool() | ~infos.pose.isfinite().all(-1)
+            self.failed += int(bad.sum())
+
+    def window_counts(self) -> dict:
+        return {k: v - self.counts0[k] for k, v in self.prog.branch_counts().items()}
+
+    def replay(self) -> None:
+        """The traced stretch: the window's calls from the trace's start
+        (the mix's ``trace``), run again from the state the window had
+        there, until ``trace.frames`` frames."""
+        i0, st, cr = self.trace_start if self.trace_start is not None else (0, self.state0, self.carry0)
+        n = 0
+        self.stretch = []
+        for call, w in self.log[i0:]:
+            if self.stretch and n >= self.traffic.mix["trace"]["frames"]:
+                break
+            self.stretch.append((call, w))
+            n += call.count
+        before = self.prog.branch_counts()
+        for call, _ in self.stretch:
+            st, cr, _ = self.prog.call(st, cr, self.stream.frames([call]))
+        self.replayed = {k: v - before[k] for k, v in self.prog.branch_counts().items()}
+
+    def release(self) -> None:
+        """Drop the program, its graphs' memory pools and the states the
+        window held (the kept segments stay with the keeper)."""
+        self.state = self.carry = self.state0 = self.carry0 = self.trace_start = None
+        self.prog.close()
+        self.prog = None
+
+
+def cameras_of(config: dict) -> int:
+    """The configuration's genlocked cameras on the card (``cameras``, 1
+    where it has none)."""
+    n = int(config.get("cameras", 1))
+    if n < 1:
+        raise ValueError(f"run: cameras {n} in the configuration")
+    return n
+
+
+def on_threads(cams: list, device, work, lead=None) -> None:
+    """``work(camera)`` for every camera at once, each on a host thread of
+    its own inside its CUDA stream's context, while this thread runs
+    ``lead()`` (the open loop's dispatcher) where given; re-raises the first
+    error once every thread has ended."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    def run(cam):
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        with cam.on_stream():
+            work(cam)
+
+    with ThreadPoolExecutor(len(cams), thread_name_prefix="camera") as pool:
+        futures = [pool.submit(run, cam) for cam in cams]
+        if lead is not None:
+            lead()
+        for f in futures:
+            f.result()
+
+
+def window_on_threads(cams: list, device, seconds: float, open_loop: bool) -> tuple[float, list]:
+    """The window at several cameras, each camera's calls on its own host
+    thread (``on_threads``). Closed loop: each thread sends its next call
+    when its last returns. Open loop: one dispatcher (this thread) sleeps,
+    holding no lock the threads need, until each tick and hands every
+    camera's call due then to its thread (``generator.genlocked``). Returns
+    the window's start on ``time.perf_counter``'s clock and how late the
+    dispatcher handed over each call (seconds; a camera's thread may start
+    it later still, while its last call runs)."""
+    import queue
+    import threading
+
+    from ptzbench.generator import genlocked
+
+    start = threading.Event()
+    t0: list = []
+    handed: list = []
+    queues = [queue.SimpleQueue() for _ in cams]
+
+    def work(cam):
+        start.wait()
+        if open_loop:
+            for call, due in iter(queues[cam.k].get, None):
+                cam.step(call, due)
+        else:
+            for call in cam.traffic.calls():
+                if time.perf_counter() - t0[0] >= seconds:
+                    break
+                cam.step(call)
+
+    def dispatch():
+        try:
+            t0.append(time.perf_counter())
+            start.set()
+            if open_loop:
+                for k, call in genlocked([cam.traffic for cam in cams], seconds):
+                    due = t0[0] + call.due_s
+                    wait = due - time.perf_counter()
+                    if wait > 0:
+                        time.sleep(wait)
+                    queues[k].put((call, due))
+                    handed.append(time.perf_counter() - due)
+        finally:
+            start.set()
+            for q in queues:
+                q.put(None)
+
+    on_threads(cams, device, work, dispatch)
+    return t0[0], handed
+
+
+def _latency(latencies: list, late: list) -> str:
+    """An open loop's latencies and the generator's lateness (seconds), in
+    ms, for standard error."""
+    ms = [1e3 * x for x in latencies]
+    return (f"p50 {percentile(ms, 50)}, p95 {percentile(ms, 95)}, p99 {percentile(ms, 99)}, max {max(ms)} over "
+            f"{len(ms)} frames; generator late ms: p50 {1e3 * percentile(late, 50)}, p99 {1e3 * percentile(late, 99)}, "
+            f"max {1e3 * max(late)}")
+
+
 def run_cell(reg, cell, seed: int, seconds: float, traced: bool, device, t_import: float = T_IMPORT,
              program_cls=None, control: bool = False, frames: list | None = None) -> tuple[dict, list[str]]:
     """One run of ``cell``: (the result, the check lines). ``device`` is the
     card; the harness's tests pass the CPU and, to plant a fault,
-    ``program_cls`` (``faults.py``). ``calibrate.py`` alone asks for
-    ``control``, which adds the control's numbers and looks to the result
-    under ``control``, and for ``frames``, which gathers each kept
-    segment's frame table (``check.frames_row``)."""
+    ``program_cls`` (``faults.py``): one class for every camera, or a list
+    of one a camera. ``calibrate.py`` alone asks for ``control``, which
+    adds the control's numbers and looks to the result under ``control``,
+    and for ``frames``, which gathers each kept segment's frame table
+    (``check.frames_row``).
+
+    A configuration of several genlocked cameras (``cameras``) runs one
+    ``Program`` a camera, each on its own CUDA stream: set-up makes and
+    warms them one camera at a time, the window runs each camera's calls
+    on a host thread of its own, the traced stretch replays on every
+    camera's thread together under one profiler session, and the check
+    replays each camera alone. At one camera all of it runs on this
+    thread and the current stream."""
     import numpy as np
     import torch
 
@@ -165,6 +354,10 @@ def run_cell(reg, cell, seed: int, seconds: float, traced: bool, device, t_impor
     on_card = device.type == "cuda"
     config, mix = cell.config, cell.mix
     width, height, frontend = int(config["width"]), int(config["height"]), config["frontend"]
+    n_cams = cameras_of(config)
+    classes = list(program_cls) if isinstance(program_cls, (list, tuple)) else [program_cls] * n_cams
+    if len(classes) != n_cams:
+        raise ValueError(f"run: {len(classes)} program classes for {n_cams} cameras")
     phases = {"imports": time.perf_counter() - t_import}
     t = time.perf_counter()
     if on_card:
@@ -176,94 +369,106 @@ def run_cell(reg, cell, seed: int, seconds: float, traced: bool, device, t_impor
         phases["kernels"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    traffic = Traffic(mix, seed)
-    stream = make_stream(traffic, width, height, device)
-    img0, pose0 = stream.frame("main", 0)
+    cams = []
+    for k in range(n_cams):
+        traffic = Traffic(mix, seed, camera=k)
+        cuda = torch.cuda.Stream(device) if on_card and n_cams > 1 else None
+        cams.append(Camera(k, traffic, make_stream(traffic, width, height, device), cuda))
     phases["frames"] = time.perf_counter() - t
+    pinned = sum(s.nbytes for cam in cams for s in cam.stream.stacks.values())
     t = time.perf_counter()
-    fields = resolved_fields(config, pose0)
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
-    prog = (program_cls or proglib.Program)(fields, frontend, width, height, device)
-    state0, carry0 = prog.init(img0, pose0)
-    if on_card:
-        torch.cuda.synchronize(device)
+    for cam, cls in zip(cams, classes):
+        with cam.on_stream():
+            cam.fields = resolved_fields(config, cam.pose0)
+            cam.prog = (cls or proglib.Program)(cam.fields, frontend, width, height, device)
+            cam.state0, cam.carry0 = cam.prog.init(cam.img0, cam.pose0)
+        if on_card:
+            torch.cuda.synchronize(device)
     phases["init"] = time.perf_counter() - t
     t = time.perf_counter()
-    warm = traffic.warmup()
-    prog.warm_up(state0, carry0, stream.frames([warm]))
-    if on_card:
-        torch.cuda.synchronize(device)
+    for cam in cams:
+        with cam.on_stream():
+            cam.prog.warm_up(cam.state0, cam.carry0, cam.stream.frames([cam.traffic.warmup()]))
+        if on_card:
+            torch.cuda.synchronize(device)
+        cam.counts0 = cam.prog.branch_counts()
     phases["warm_up"] = time.perf_counter() - t
-    counts0 = prog.branch_counts()
     setup_s = time.perf_counter() - t_import
-    _log("set-up seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()) + f"; total {setup_s:.3f}")
+    _log("set-up seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()) + f"; total {setup_s:.3f}; "
+         f"{n_cams} camera(s), frames pinned {pinned} bytes")
 
     # the window; the set-up's objects frozen out of the garbage collector's
     # reach, so that a full collection in the window stays short
     gc.collect()
     gc.freeze()
     chk = mix["check"]
-    keeper = checklib.Keeper(chk["picks"], chk["segment_calls"], np.random.default_rng([int(seed), 29]))
-    trace_from = mix["trace"]["from"]
-    trace_start = (0, state0, carry0) if trace_from == "first" else None
-    log: list = []          # (call, wall seconds) of each call of the window
-    latencies: list = []    # open loop: due to pose on the host, seconds a frame
-    late: list = []         # open loop: how late each call was sent
-    attempted = failed = lost = 0
-    state, carry = state0, carry0
+    for cam in cams:
+        rng = np.random.default_rng([int(seed), 29] + ([cam.k] if cam.k else []))
+        cam.keeper = checklib.Keeper(chk["picks"], chk["segment_calls"], rng)
+        cam.state, cam.carry = cam.state0, cam.carry0
+        if mix["trace"]["from"] == "first":
+            cam.trace_start = (0, cam.state0, cam.carry0)
     open_loop = mix["loop"] == "open"
-    t0 = time.perf_counter()
     t0_clock = time.time()
-    t_end = t0
-    for call in traffic.calls():
-        if open_loop:
-            if call.due_s >= seconds:
+    handed: list = []   # at several cameras in an open loop: how late the dispatcher handed over each call
+    if n_cams == 1:
+        cam = cams[0]
+        t0 = time.perf_counter()
+        for call in cam.traffic.calls():
+            if open_loop:
+                if call.due_s >= seconds:
+                    break
+                due = t0 + call.due_s
+                while time.perf_counter() < due:   # spin: a sleep's wake-up comes late on a busy host
+                    pass
+            elif time.perf_counter() - t0 >= seconds:
                 break
-            due = t0 + call.due_s
-            while time.perf_counter() < due:   # spin: a sleep's wake-up comes late on a busy host
-                pass
-        elif time.perf_counter() - t0 >= seconds:
-            break
-        if trace_start is None and trace_from.startswith("tag:") and trace_from[4:] in call.tags:
-            trace_start = (len(log), state, carry)
-        keeper.before(call, state, carry, first=not log)
-        t_call = time.perf_counter()
-        state, carry, infos = prog.call(state, carry, stream.frames([call]))
-        t_end = time.perf_counter()
-        keeper.after(call, infos, state)
-        log.append((call, t_end - t_call))
-        if open_loop:
-            late.append(t_call - due)
-            latencies.extend([t_end - due] * call.count)
-        lost += int(infos.lost.sum())
-        if call.source == "main":
-            attempted += call.count
-            bad = infos.lost.bool() | ~torch.isfinite(infos.pose).all(-1)
-            failed += int(bad.sum())
-    keeper.finish(state)
-    wall = t_end - t0
+            cam.step(call, due if open_loop else None)
+    else:
+        t0, handed = window_on_threads(cams, device, seconds, open_loop)
+    for cam in cams:
+        cam.keeper.finish(cam.state)
+    ends = [cam.t_end for cam in cams if cam.t_end is not None]
+    wall = (max(ends) if ends else t0) - t0
+    log = [entry for cam in cams for entry in cam.log]
     frames_done = sum(c.count for c, _ in log)
-    counts = {k: v - counts0[k] for k, v in prog.branch_counts().items()}
+    attempted = sum(cam.attempted for cam in cams)
+    failed = sum(cam.failed for cam in cams)
+    counts = dict.fromkeys(proglib.BRANCHES, 0)
+    for cam in cams:
+        for k, v in cam.window_counts().items():
+            counts[k] += v
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
     walls_ms = [1e3 * w for _, w in log]
     _log(f"window: {frames_done} frames in {len(log)} calls, {wall:.4f} s; branches {counts}; "
-         f"attempted {attempted}, failed {failed}, lost frames {lost}; call walls ms p10 "
+         f"attempted {attempted}, failed {failed}, lost frames {sum(cam.lost for cam in cams)}; call walls ms p10 "
          f"{percentile(walls_ms, 10):.3f}, p50 {percentile(walls_ms, 50):.3f}, p90 {percentile(walls_ms, 90):.3f}, "
          f"max {max(walls_ms):.3f}")
+    for cam in cams if n_cams > 1 else ():
+        ms = [1e3 * w for _, w in cam.log]
+        _log(f"window, camera {cam.k}: {sum(c.count for c, _ in cam.log)} frames in {len(cam.log)} calls; "
+             f"branches {cam.window_counts()}; lost frames {cam.lost}; call walls ms p50 {percentile(ms, 50):.3f}, "
+             f"p90 {percentile(ms, 90):.3f}, max {max(ms):.3f}")
     if not open_loop:   # each call's wall, beside the clock time the window opened (to read against the card's clocks)
-        _log(f"call walls ms from {t0_clock:.3f}: " + " ".join(f"{w:.1f}" for w in walls_ms))
+        for cam in cams:
+            named = f"camera {cam.k} " if n_cams > 1 else ""
+            _log(f"{named}call walls ms from {t0_clock:.3f}: " + " ".join(f"{1e3 * w:.1f}" for _, w in cam.log))
 
+    latencies = [x for cam in cams for x in cam.latencies]
     end_to_end = {
         "setup_s": setup_s,
         "fps": frames_done / wall if wall > 0 else math.nan,
         "latency_p95_ms": 1e3 * percentile(latencies, 95),
     }
     if open_loop:
-        _log(f"latency ms: p50 {1e3 * percentile(latencies, 50)}, p95 {end_to_end['latency_p95_ms']}, "
-             f"p99 {1e3 * percentile(latencies, 99)}, max {1e3 * max(latencies)} over {len(latencies)} frames; "
-             f"generator late ms: p50 {1e3 * percentile(late, 50)}, p99 {1e3 * percentile(late, 99)}, "
-             f"max {1e3 * max(late)}")
+        for cam in cams if n_cams > 1 else ():
+            _log(f"latency ms, camera {cam.k}: {_latency(cam.latencies, cam.late)}")
+        _log(f"latency ms: {_latency(latencies, [x for cam in cams for x in cam.late])}")
+        if handed:
+            _log(f"dispatcher late ms: p50 {1e3 * percentile(handed, 50)}, p99 {1e3 * percentile(handed, 99)}, "
+                 f"max {1e3 * max(handed)} over {len(handed)} calls")
 
     result_device = {
         "platform": "gpu" if on_card else "cpu",
@@ -274,36 +479,32 @@ def run_cell(reg, cell, seed: int, seconds: float, traced: bool, device, t_impor
     metrics: dict = {}
     breakdown = None
     if traced:
-        if trace_start is None:
-            trace_start = (0, state0, carry0)
-        i0, st, cr = trace_start
-        stretch, n = [], 0
-        for call, w in log[i0:]:
-            if stretch and n >= mix["trace"]["frames"]:
-                break
-            stretch.append((call, w))
-            n += call.count
-        before = prog.branch_counts()
         with tracelib.session() as got:
-            for call, _ in stretch:
-                st, cr, _ = prog.call(st, cr, stream.frames([call]))
+            if n_cams == 1:
+                cams[0].replay()
+            else:
+                on_threads(cams, device, Camera.replay)
         tr = got[0]
-        replay = {k: v - before[k] for k, v in prog.branch_counts().items()}
-        del st, cr
+        replay = dict.fromkeys(proglib.BRANCHES, 0)
+        for cam in cams:
+            for k, v in cam.replayed.items():
+                replay[k] += v
+        flat = [(cam.stream, c.source, c.row + j) for cam in cams for c, _ in cam.stretch for j in range(c.count)]
+        n = len(flat)
 
         def sample(k: int):
             picks = np.linspace(0, n - 1, k).round().astype(int)
-            flat = [(c.source, c.row + j) for c, _ in stretch for j in range(c.count)]
             out = []
             for p in picks:
-                source, row = flat[p]
+                stream, source, row = flat[p]
                 prev_row = row - 1 if row > 0 else row
                 out.append((stream.stacks[source][prev_row], stream.stacks[source][row], stream.poses[source][row]))
             return out
 
         view = View(
-            tr, n, [w for _, w in stretch], replay, counts, frames_done, dict(proglib.KERNELS), fields,
-            frontend, width, height, sample,
+            trace=tr, frames=n, walls_s=[w for cam in cams for _, w in cam.stretch], branches=replay,
+            window_branches=counts, window_frames=frames_done, kernels=dict(proglib.KERNELS), fields=cams[0].fields,
+            frontend=frontend, width=width, height=height, sample=sample, cameras=n_cams,
         )
         for m in cell.per_layer:
             value = reg.reader(m["name"])(view)
@@ -313,24 +514,30 @@ def run_cell(reg, cell, seed: int, seconds: float, traced: bool, device, t_impor
         result_device["busy_s"] = busy
         result_device["window_s"] = tr.window_s
         breakdown = {"device_ops": tracelib.top_ops(tr.device_ops), "idle_gaps": tracelib.idle_gaps(tr)}
-        _log(f"trace: {n} frames in {len(stretch)} calls from call {i0}, {len(tr.device_ops)} device records, "
-             f"busy {busy} s of {tr.window_s} s, branches {replay}")
+        calls = sum(len(cam.stretch) for cam in cams)
+        starts = ", ".join(str(cam.trace_start[0] if cam.trace_start else 0) for cam in cams)
+        ops_s = sum(o.dur_ns for o in tr.device_ops) / 1e9   # over busy_s where operations overlapped
+        _log(f"trace: {n} frames in {calls} calls from call {starts}, {len(tr.device_ops)} device records, "
+             f"busy {busy} s of {tr.window_s} s (operations {ops_s} s), branches {replay}")
     else:
         for m in cell.end_to_end:
             metrics[m["name"]] = {"value": float(end_to_end[m["name"]]), "unit": m["unit"]}
 
-    # the check, after the program and its graphs are freed
+    # the check, after the programs and their graphs are freed
     gc.unfreeze()
-    segments = keeper.segments()
-    del state, carry, state0, carry0, trace_start
-    prog.close()
-    del prog
+    for cam in cams:
+        cam.release()
     gc.collect()
     if on_card:
+        torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
-    rp = checklib.Replay(fields, frontend, width, height, stream.frames, img0, pose0)
+    runs = [
+        (checklib.Replay(cam.fields, frontend, width, height, cam.stream.frames, cam.img0, cam.pose0),
+         cam.keeper.segments())
+        for cam in cams
+    ]
     t_check = time.perf_counter()
-    numbers, rows, ctl = checklib.check(rp, segments, device, control, frames)
+    numbers, rows, ctl = checklib.check_cameras(runs, device, control, frames)
     for row in rows:
         _log("segment", json.dumps(row))
     correct, shown = checklib.verdict(numbers, cell.limits)

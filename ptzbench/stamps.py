@@ -9,6 +9,14 @@ In a run, ``window()`` is the window's calls: the set-up's warm-up call,
 which captured the frame graph, and the traced replay, which ran under the
 profiler, are not in it. Times are nanoseconds on the host's clock, the
 card's stamps moved onto it by the program's calibrated offset.
+
+At several cameras (a configuration's ``cameras``) the program's ring
+(``_trace.RING``, the last 4,096 calls) holds every camera's calls
+together: four live cameras make ~9,600 calls in a 40-s window, so
+``window()`` is only the window's tail there. The calls of a traced replay
+on the cameras' own threads are not marked as profiled either (the
+profiler's state, which the ring reads, is the thread's that opened the
+session), so at several cameras ``window()`` holds them too.
 """
 
 from __future__ import annotations
